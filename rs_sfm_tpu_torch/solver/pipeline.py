@@ -1,0 +1,220 @@
+"""End-to-end motion/depth estimation from a dense flow field (port of
+rs_sfm_tpu/solver/pipeline.py:50-406).
+
+flatten → normalize → α/α̃ → RANSAC → fused Schur-LM refinement (one start,
+or J diversity starts winnowed to one) → sign flip → depth export
+(src/main.cc:398-509).  Every tensor stays on the flow field's device; on
+the card the scoring and LM iterations run the hand-written kernels.
+
+Not ported yet: the warm start of the feedback passes, the acceleration
+model and its k-scan, the second winnow stage, the two-stage prescore,
+the sharded path (`axis_name`) and the XLA-style refinement engine.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from rs_sfm_tpu_torch.config import PipelineConfig
+from rs_sfm_tpu_torch.geom.camera import (Intrinsics, normalize_coords,
+                                          normalize_flow, pixel_grid)
+from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
+from rs_sfm_tpu_torch.solver.flow_model import predict_flow
+from rs_sfm_tpu_torch.solver.ransac import _score_hypotheses, ransac
+from rs_sfm_tpu_torch.solver.refine_fused import (refine_pallas,
+                                                  refine_pallas_multi)
+
+
+class EstimationResult(NamedTuple):
+    v: torch.Tensor            # (3,)
+    w: torch.Tensor            # (3,)
+    k: torch.Tensor            # ()
+    depth_map: torch.Tensor    # (H, W) Z = 1/ρ at exported pixels, 0 elsewhere
+    inlier_mask: torch.Tensor  # (H, W) bool
+    valid_mask: torch.Tensor   # (H, W) bool (|flow|² > threshold)
+    num_inliers: torch.Tensor  # () int32
+    ransac_v: torch.Tensor     # (3,) pre-refinement estimates
+    ransac_w: torch.Tensor
+    ransac_k: torch.Tensor
+    refine_cost: torch.Tensor  # () final refinement cost (0 without refinement)
+    # Row 0 is the exported model; rows 1.. the winnow-stage refined
+    # diversity starts (multi-start path only; not sign-flipped).
+    top_v: torch.Tensor
+    top_w: torch.Tensor
+    top_k: torch.Tensor
+
+
+def prepare_flow_inputs(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig):
+    """Flatten + normalize the flow grid and compute the RS factors
+    (src/main.cc:398-434; flow normalized without the γ premultiply).
+
+    Returns (coords (N,2), flow_n (N,2), alpha (N,), alpha_k (N,),
+    valid (N,) bool).
+    """
+    h, w_cols = flow_px.shape[:2]
+    grid = pixel_grid(h, w_cols, dtype=flow_px.dtype, device=flow_px.device)
+    coords = normalize_coords(grid, intr).reshape(-1, 2)
+    flow_n = normalize_flow(flow_px, intr).reshape(-1, 2)
+    fpx = flow_px.reshape(-1, 2)
+    valid = torch.sum(fpx * fpx, dim=-1) > cfg.flow_threshold
+    alpha = get_alpha(fpx[:, 1], h, gamma)
+    alpha_k = get_alpha_k(grid[..., 1].reshape(-1), fpx[:, 1], h, gamma)
+    if cfg.use_global_shutter:
+        alpha = torch.ones_like(alpha)  # GS baseline (src/errorMeasure.cpp:106-111)
+    return coords, flow_n, alpha, alpha_k, valid
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    if cfg.use_acceleration and not cfg.use_global_shutter:
+        raise NotImplementedError("the acceleration model is not ported yet")
+    if cfg.ransac_prescore_subsample:
+        raise NotImplementedError("the RANSAC prescore is not ported yet")
+    if cfg.refine_winnow2_iters:
+        raise NotImplementedError("the second winnow stage is not ported")
+    if cfg.use_refinement and cfg.refine_engine != "pallas":
+        raise NotImplementedError(
+            "only the fused refinement (refine_engine='pallas') is ported")
+
+
+def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
+                       generator: Optional[torch.Generator] = None, *,
+                       sample_indices=None,
+                       timer: Optional[Callable[[str], None]] = None,
+                       ) -> EstimationResult:
+    """Full estimation: flow grid → (v, w, k) + depth map.
+
+    Args:
+      flow_px: (H, W, 2) float32 dense pixel flow, on the device to run on.
+      intr: intrinsics; gamma: readout ratio; cfg: configuration.
+      generator: torch.Generator (on flow_px's device) for RANSAC sampling.
+      sample_indices: optional (ransac_trials, 9) precomputed RANSAC draws;
+        overrides `generator` (the tests inject the JAX package's draws).
+      timer: optional callback, called with "prepare", "ransac" and
+        "refine" as each stage has been issued (stage timing with CUDA
+        events; nothing is synchronized here).
+    """
+    _check_supported(cfg)
+    mark = timer if timer is not None else (lambda _name: None)
+    h, w_cols = flow_px.shape[:2]
+    use_k = False
+    tol = cfg.ransac_tol
+    coords, flow_n, alpha, alpha_k, valid = prepare_flow_inputs(
+        flow_px, intr, gamma, cfg)
+    mark("prepare")
+
+    rr = ransac(coords, flow_n, alpha, alpha_k, valid, use_k=use_k,
+                trials=cfg.ransac_trials, tolerance=tol, generator=generator,
+                sample_indices=sample_indices, chunk=cfg.ransac_chunk,
+                engine=cfg.ransac_engine,
+                top_j=cfg.refine_starts if cfg.use_refinement else 1,
+                top_j_diversity=cfg.refine_start_diversity)
+    mark("ransac")
+
+    # Huber knee in normalized units.
+    loss_delta = (cfg.refine_loss_delta_px / float((intr.fx * intr.fy) ** 0.5)
+                  if cfg.refine_loss_delta_px > 0.0 else 0.0)
+
+    def score(vs, ws, ks):
+        return _score_hypotheses(coords, flow_n, alpha, alpha_k, valid,
+                                 vs, ws, ks, tol)
+
+    no_cands = torch.zeros((0, 3), dtype=coords.dtype, device=coords.device)
+    inlier_mask, num_inliers = rr.inlier_mask, rr.num_inliers
+    if cfg.use_refinement and cfg.refine_starts > 1:
+        # Multi-start: refine all top-J hypotheses as one batched problem,
+        # re-score each refined model on all pixels, keep the exact
+        # lexicographic best (#inliers desc, error asc; ties to the
+        # earliest start).
+        _, _, rho_j, inl_j = score(rr.top_v, rr.top_w, rr.top_k)
+        winnow = (cfg.refine_winnow_iters
+                  if 0 < cfg.refine_winnow_iters < cfg.refine_iterations
+                  else 0)
+
+        def refine_multi(masks, vs, ws, ks, rhos, iters):
+            return refine_pallas_multi(
+                coords, flow_n, alpha, alpha_k, masks, vs, ws, ks, rhos,
+                optimize_k=use_k, iterations=iters,
+                rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
+
+        def rescore(ref):
+            num_r, err_r, rho_r, inl_r = score(ref.v, ref.w, ref.k)
+            num_g = num_r.to(err_r.dtype)
+            err_g = torch.where(torch.isfinite(err_r), err_r, torch.inf)
+            err_masked = torch.where(num_g == torch.max(num_g), err_g,
+                                     torch.inf)
+            return torch.argmin(err_masked), num_g, rho_r, inl_r
+
+        ref = refine_multi(inl_j, rr.top_v, rr.top_w, rr.top_k, rho_j,
+                           winnow if winnow else cfg.refine_iterations)
+        best_j, num_g, rho_r, inl_r = rescore(ref)
+        cand_v, cand_w, cand_k = ref.v, ref.w, ref.k
+        if winnow:
+            # Finish the winner alone from its winnow-phase state.
+            ref = refine_multi(inl_r[best_j][None], ref.v[best_j][None],
+                               ref.w[best_j][None], ref.k[best_j][None],
+                               rho_r[best_j][None],
+                               cfg.refine_iterations - winnow)
+            best_j, num_g, rho_r, inl_r = rescore(ref)
+        v, w, k = ref.v[best_j], ref.w[best_j], ref.k[best_j]
+        rho = rho_r[best_j]
+        refine_cost = ref.cost[best_j]
+        inlier_mask = inl_r[best_j]
+        num_inliers = num_g[best_j].to(torch.int32)
+    elif cfg.use_refinement:
+        ref = refine_pallas(coords, flow_n, alpha, alpha_k, rr.inlier_mask,
+                            rr.v, rr.w, rr.k, rr.inv_depth,
+                            optimize_k=use_k,
+                            iterations=cfg.refine_iterations,
+                            rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
+        v, w, k = ref.v, ref.w, ref.k
+        refine_cost = ref.cost
+        cand_v = cand_w = no_cands
+        cand_k = no_cands[:, 0]
+        # Export the closed-form ρ at the refined motion with a re-scored
+        # inlier set (the multi-start export semantics).
+        num_1, _, rho_1, inl_1 = score(v[None], w[None], k[None])
+        rho = rho_1[0]
+        inlier_mask, num_inliers = inl_1[0], num_1[0]
+    else:
+        v, w, k, rho = rr.v, rr.w, rr.k, rr.inv_depth
+        refine_cost = torch.zeros((), dtype=coords.dtype,
+                                  device=coords.device)
+        cand_v = cand_w = no_cands
+        cand_k = no_cands[:, 0]
+    mark("refine")
+
+    # Sign disambiguation: flip v and depths if the mean inlier depth is
+    # negative (src/main.cc:466-478).
+    safe_rho = torch.where(rho == 0.0, torch.ones_like(rho), rho)
+    z = torch.where(rho == 0.0, torch.zeros_like(rho), 1.0 / safe_rho)
+    m = inlier_mask.to(z.dtype)
+    z_mean = torch.sum(z * m) / torch.clamp(torch.sum(m), min=1.0)
+    sign = torch.where(z_mean < 0.0, -1.0, 1.0).to(z.dtype)
+    v = v * sign
+    z = z * sign
+
+    depth_sel = inlier_mask
+    if cfg.depth_residual_px > 0.0:
+        # Tight-consensus depth export: keep only inliers whose flow the
+        # final model fits within depth_residual_px pixels.
+        u_fin = predict_flow(coords, rho, v * sign, w, k, alpha, alpha_k)
+        fmean = torch.sqrt(torch.tensor(intr.fx * intr.fy,
+                                        dtype=coords.dtype,
+                                        device=coords.device))
+        diff = u_fin - flow_n
+        resid_px = torch.sqrt(torch.sum(diff * diff, dim=-1)) * fmean
+        depth_sel = depth_sel & (resid_px <= cfg.depth_residual_px)
+
+    depth_map = torch.where(depth_sel, z, torch.zeros_like(z)).reshape(
+        h, w_cols)
+    return EstimationResult(
+        v=v, w=w, k=k, depth_map=depth_map,
+        inlier_mask=inlier_mask.reshape(h, w_cols),
+        valid_mask=valid.reshape(h, w_cols),
+        num_inliers=num_inliers, ransac_v=rr.v * sign, ransac_w=rr.w,
+        ransac_k=rr.k, refine_cost=refine_cost,
+        top_v=torch.cat([v[None], cand_v]),
+        top_w=torch.cat([w[None], cand_w]),
+        top_k=torch.cat([k[None], cand_k]))

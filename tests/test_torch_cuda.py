@@ -1,0 +1,151 @@
+"""CUDA kernels B1-B3 against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
+skips elsewhere.  The file imports neither JAX nor the JAX package, so it
+also runs on a machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(`--noconftest`: tests/conftest.py configures JAX).
+
+Tolerances: B1 counts exactly equal (the kernel and the plain version
+evaluate every pixel's error in the same IEEE operations, see
+csrc/score.cu), error sums rtol 1e-5 (summation order).  B2/B3 state rtol
+1e-5, atol 1e-7, with each sum slot also allowed 1e-5 of its
+Cauchy-Schwarz bound (tests/test_torch_refine.py explains both), compared
+at unit damping.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rs_sfm_tpu_torch.ops.kernels import refine_kernels as trk
+from rs_sfm_tpu_torch.ops.kernels import score as tscore
+from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
+from rs_sfm_tpu_torch.solver.flow_model import predict_flow
+
+TOL = 0.05
+HUBER = 1e-3
+N = 4096
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _score_problem(n, t, seed):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    p = dict(
+        coords=rng.normal(scale=0.3, size=(n, 2)).astype(f32),
+        flow=rng.normal(scale=0.01, size=(n, 2)).astype(f32),
+        alpha=(1.0 + rng.normal(scale=0.01, size=n)).astype(f32),
+        alpha_k=(0.5 + rng.normal(scale=0.05, size=n)).astype(f32),
+        valid=rng.uniform(size=n) > 0.1,
+        v=rng.normal(size=(t, 3)).astype(f32),
+        w=rng.normal(scale=0.01, size=(t, 3)).astype(f32),
+        k=rng.uniform(-0.5, 1.5, size=t).astype(f32))
+    return {k: torch.from_numpy(v) for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(2048, 16), (5000, 300)])
+def test_score_kernel_matches_plain(cuda_device, n, t):
+    """T = 300 crosses the kernel's 256-hypothesis shared-memory chunk;
+    N = 5000 leaves a ragged last block."""
+    p = _score_problem(n, t, seed=6)
+    px = tscore.pack_pixels(p["coords"], p["flow"], p["alpha"], p["alpha_k"],
+                            p["valid"]).to(cuda_device)
+    hy = tscore.pack_hyps(p["v"], p["w"], p["k"]).to(cuda_device)
+    before = tscore.score_hypotheses.launches
+    num_k, err_k = tscore.score_hypotheses(px, hy, TOL)
+    torch.cuda.synchronize()
+    assert tscore.score_hypotheses.launches == before + 1
+    num_p, err_p = tscore.score_hypotheses_plain(px, hy, TOL)
+    np.testing.assert_array_equal(num_k.cpu().numpy(), num_p.cpu().numpy())
+    np.testing.assert_allclose(err_k.cpu().numpy(), err_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _lm_problem(j, seed=8):
+    """RS flow of N random points with coherent outliers, J starts."""
+    rng = np.random.default_rng(seed)
+    f, h, gamma = 500.0, 600, 0.9
+    pix = rng.uniform(0, 599, size=(N, 2))
+    coords = ((pix - 300.0) / f).astype(np.float32)
+    v = np.array([0.02, -0.01, 0.015], np.float32)
+    w = np.array([0.004, -0.002, 0.008], np.float32)
+    rho = (1.0 / rng.uniform(3.0, 9.0, size=N)).astype(np.float32)
+    fy = rng.normal(scale=2.0, size=N)
+    alpha = get_alpha(fy, h, gamma).astype(np.float32)
+    alpha_k = get_alpha_k(pix[:, 1], fy, h, gamma).astype(np.float32)
+    flow = predict_flow(*[torch.from_numpy(a) for a in (coords, rho, v, w)],
+                        0.3, torch.from_numpy(alpha),
+                        torch.from_numpy(alpha_k)).numpy()
+    flow = flow + rng.normal(scale=2e-4, size=(N, 2)).astype(np.float32)
+    flow[:64] += np.array([3e-3, -2e-3], np.float32)
+    masks = (rng.uniform(size=(j, N)) > 0.2).astype(np.float32)
+    px = np.stack([coords[:, 0], coords[:, 1], flow[:, 0], flow[:, 1], alpha,
+                   alpha_k, masks[0], np.zeros(N, np.float32)])
+    theta = np.concatenate([
+        v[None] * np.array([1.1, 1.4, 0.7, 1.2])[:j, None] + 0.003,
+        w[None] * np.array([0.9, 0.5, 1.5, 1.1])[:j, None],
+        np.array([0.3, 0.1, 0.6, 0.2])[:j, None]], axis=1)
+    state = np.zeros((j, 128), np.float32)
+    state[:, 0:7] = theta
+    state[:, 7:14] = theta
+    state[:, trk.S_LAM] = 3e-6
+    state[:, trk.S_COST] = np.inf
+    state[:, trk.S_KKEEP] = 1.0
+    state[:, trk.S_ACCEPT] = 1.0
+    rho_j = (rho[None] * rng.uniform(0.8, 1.2, size=(j, 1))).astype(
+        np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32))
+            for a in (state, px, masks, rho_j)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", [1, 4])
+@pytest.mark.parametrize("loss_delta", [0.0, HUBER])
+def test_lm_kernels_match_plain(cuda_device, j, loss_delta):
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j)]
+    rcd = rpd
+    # Bootstrap sweep, then one full step, each from the same state and
+    # solving at unit damping (an accept divides the slot by 3).
+    for _ in range(2):
+        st = st.clone()
+        st[:, trk.S_LAM] = 3.0
+        if j == 1:
+            before = trk.lm_iter.launches
+            got = trk.lm_iter(st[0], pxd, rpd, rcd, loss_delta=loss_delta)
+            assert trk.lm_iter.launches == before + 1
+            ref = trk.lm_iter_plain(st[0], pxd, rpd, rcd,
+                                    loss_delta=loss_delta)
+        else:
+            before = trk.lm_iter_multi.launches
+            got = trk.lm_iter_multi(st, pxd, md, rpd, rcd,
+                                    loss_delta=loss_delta)
+            assert trk.lm_iter_multi.launches == before + 1
+            ref = trk.lm_iter_multi_plain(st, pxd, md, rpd, rcd,
+                                          loss_delta=loss_delta)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            bad = trk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
+            assert not bad, bad[:10]
+        st = ref[0] if j > 1 else ref[0][None]
+        rpd, rcd = ref[1], ref[2]
+
+
+@pytest.mark.cuda
+def test_lm_kernel_is_deterministic(cuda_device):
+    """The decide kernel reduces the block partials in a fixed order: two
+    launches on the same inputs give bit-identical states."""
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(4)]
+    a = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
+    b = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
