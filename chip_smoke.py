@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (rs_sfm_tpu_torch) on one NVIDIA GPU.
 
-Drives the solver slice -- flow field -> prepare -> 256-hypothesis RANSAC
-scored on every pixel -> fused Schur-LM refinement -> sign flip and depth
-export -> per-scanline poses -> packed24 rectification -- at full HD
-(1920x1080, N = 2,073,600 pixels) in both slice configurations
-(rs_sfm_tpu_torch.config.SLICE_CONFIGS), through the hand-written CUDA
-kernels of rs_sfm_tpu_torch/csrc, and holds each kernel and the slice
-against their plain PyTorch versions.
+Drives the port's main path -- dense flow (forward + half-resolution
+backward + occlusion test) -> estimation with two model-feedback passes ->
+per-scanline poses -> packed24 rectification -- at full HD (1920x1080) on
+bench.py's input, and the solver slice (flow field -> RANSAC -> fused
+Schur-LM -> rectification) in both slice configurations, through the
+hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
+both paths against their plain PyTorch versions.
 
     python3 chip_smoke.py          # one CUDA device; a few minutes
 
 Phases, each printing its lines before the next starts (any failure raises
 and the script exits non-zero; nothing is caught and continued):
   [1 device]  the card's name, then nvidia-smi's "name, power.limit" line
-  [2 build]   nvcc builds csrc/*.cu for sm_90a; seconds and ptxas usage
-  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi vs their plain versions
-              at full-HD shapes; median ms of 20 timed runs of each
-  [4 slice]   both configurations at full HD: v, w, inliers, per-stage ms
-              (CUDA events), peak memory, kernel launch counts
-  [5 parity]  the slice at 270x480 on the card (kernels) vs on the CPU
-              (plain versions), same RANSAC draws
+  [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds and
+              ptxas usage
+  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi, B4 warp, B5
+              sor_sweeps, B6 median3_planes vs their plain versions at
+              full-HD shapes; median ms of 20 timed runs of each, of its
+              plain version and (B4) of F.grid_sample, and its bound
+  [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
+              per-stage ms (CUDA events), peak memory, launch counts
+  [5 parity]  the solver slice and the e2e path at 270x480 on the card
+              (kernels) vs on the CPU (plain versions), same RANSAC draws
+  [6 e2e]     the main path at full HD: 1 warm-up and 3 timed passes,
+              per-stage ms, host wall time, peak memory, launch counts of
+              all six kernels asserted against the configuration's; then
+              one pass under torch.profiler (device kernels, busy share)
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -40,6 +47,35 @@ GAMMA = 0.9
 # bench.py's intrinsics for the full-HD flow field.
 INTR_ARGS = dict(fx=1803.3, fy=1799.4, cx=945.3, cy=544.7)
 REPEATS = 20
+# Card-vs-CPU gates of the 270x480 e2e parity (phase 5).  Measured on an
+# NVIDIA H100: the flow and the occlusion mask bit-exact (every kernel and
+# every plain op rounds as IEEE float32 does), v 9e-7 and w 7e-9 apart
+# (summation order in RANSAC and the LM); the gates leave about 100x.
+E2E_GATES = {"flow_median_px": 1e-4, "flow_p99_px": 1e-3,
+             "occlusion_share": 1e-4, "v_direction": 1e-4, "w": 1e-6}
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# Float32 operations per unit of work, counted from each kernel's source:
+# per pixel and hypothesis (score.cu), per pixel and start (lm_iter.cu,
+# its header's count), per output pixel (warp.cu), per pixel and sweep
+# (sor.cu), per pixel and plane (median.cu: 19 comparators, min and max).
+OPS_SCORE = 54
+OPS_LM = 250
+OPS_WARP = 21
+OPS_SOR = 92
+OPS_MEDIAN = 38
+
+KERNELS = {  # name: (csrc source, TPU kernel it replaces)
+    "score_hypotheses": ("score", "score.py:85"),
+    "lm_iter": ("lm_iter", "refine_kernels.py:503"),
+    "lm_iter_multi": ("lm_iter", "refine_kernels.py:451"),
+    "warp": ("warp", "warp.py:96"),
+    "sor_sweeps": ("sor", "sor.py:158"),
+    "median3_planes": ("median", "median.py:72"),
+}
 
 
 def check(ok, what):
@@ -48,22 +84,32 @@ def check(ok, what):
 
 
 def time_ms(fn, runs=REPEATS, warmup=3):
-    """Median of `runs` timings of fn() with CUDA events, after warm-up."""
+    """Median device time of fn() over `runs` calls, with CUDA events.
+
+    The calls are queued behind a spin kernel that outlasts their host-side
+    launch time, so each call's pair of events brackets its device work
+    alone: without the backlog a short kernel's window would also hold the
+    wrapper's host time (a 10 us kernel measured 49-63 us).
+    """
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    # Cycles at up to 2 GHz, twice the host time the calls need.
+    torch.cuda._sleep(int(2 * runs * host_s * 2e9) + 10**6)
+    for start, end in events:
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
 def unit(v):
@@ -71,6 +117,97 @@ def unit(v):
 
     v = np.asarray(v, np.float64)
     return v / np.linalg.norm(v)
+
+
+def bound(nbytes, ops):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the HBM rate and the operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(err, ms, plain_ms, nbytes, ops, library_ms=None):
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def wrappers():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from rs_sfm_tpu_torch.ops.kernels import median as km
+    from rs_sfm_tpu_torch.ops.kernels import refine_kernels as rk
+    from rs_sfm_tpu_torch.ops.kernels import score as sk
+    from rs_sfm_tpu_torch.ops.kernels import sor as ks
+    from rs_sfm_tpu_torch.ops.kernels import warp as kw
+
+    return {"score_hypotheses": sk.score_hypotheses, "lm_iter": rk.lm_iter,
+            "lm_iter_multi": rk.lm_iter_multi, "warp": kw.warp,
+            "sor_sweeps": ks.sor_sweeps,
+            "median3_planes": km.median3_planes}
+
+
+def _dense_launches(cfg, h, w):
+    """(warp, SOR, median) kernel launches of one dense_flow_aux call."""
+    from rs_sfm_tpu_torch.flow.dense import _chunks, pyramid_levels
+
+    shapes = [(h, w)]
+    for _ in range(pyramid_levels(h, w, cfg.levels) - 1):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    warp = sor = med = 0
+    if cfg.init_search_radius > 0:
+        med += 1  # the coarse search's median clean-up
+    for lvl, (hh, ww) in enumerate(shapes):
+        if lvl != 0:
+            radius = (cfg.refine_search_radius
+                      if (cfg.refine_search_radius > 0
+                          and min(hh, ww) <= cfg.refine_max_size)
+                      else cfg.refine_fine_radius)
+            if radius > 0:
+                # One warp launch per chunk of candidate flows, then the
+                # median clean-up.
+                warp += len(_chunks((2 * radius + 1) ** 2, hh, ww))
+                med += 1
+        finest = lvl == 0
+        warps = (cfg.warps if finest or cfg.warps_coarse <= 0
+                 else cfg.warps_coarse)
+        iters = (cfg.iters if finest or cfg.iters_coarse <= 0
+                 else cfg.iters_coarse)
+        warp += warps
+        sor += 2 * iters * warps  # one launch per colour of each sweep
+        med += warps if cfg.median else 0
+    return warp, sor, med
+
+
+def flow_launches(cfg, h, w):
+    """Kernel launches of flow_forward_backward at (h, w) on CUDA tensors,
+    derived from the configuration."""
+    bh, bw = h, w
+    for _ in range(cfg.backward_scale.bit_length() - 1):
+        bh, bw = (bh + 1) // 2, (bw + 1) // 2
+    fw = _dense_launches(cfg, h, w)
+    bwd = _dense_launches(cfg, bh, bw) if cfg.backward_scale > 1 else fw
+    return {"warp": fw[0] + bwd[0] + 1 + (cfg.occ_photo > 0.0),
+            "sor_sweeps": fw[1] + bwd[1],
+            "median3_planes": fw[2] + bwd[2]}
+
+
+def estimation_launches(cfg):
+    """B1-B3 launches of one estimate_with_feedback call."""
+    multi = single = 0
+    if cfg.refine_starts > 1:
+        winnow = (cfg.refine_winnow_iters
+                  if 0 < cfg.refine_winnow_iters < cfg.refine_iterations
+                  else 0)
+        multi = (winnow + 1 + cfg.refine_iterations - winnow + 1 if winnow
+                 else cfg.refine_iterations + 1)
+    else:
+        single = cfg.refine_iterations + 1
+    fb_iters = cfg.feedback_refine_iterations or cfg.refine_iterations
+    single += cfg.feedback_passes * (fb_iters + 1)
+    return {"score_hypotheses": int(cfg.ransac_engine == "pallas"),
+            "lm_iter": single, "lm_iter_multi": multi}
 
 
 def phase_device():
@@ -115,7 +252,7 @@ def slice_inputs(dev, h=H, w=W, scale=1.0):
 
 
 def phase_kernels(dev):
-    """Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    """B1-B3 on the solver slice's inputs; returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -154,10 +291,14 @@ def phase_kernels(dev):
     err = float(torch.max(torch.abs(err_k - err_p)))
     ms = time_ms(lambda: sk.score_hypotheses(px, hy, tol))
     plain_ms = time_ms(lambda: sk.score_hypotheses_plain(px, hy, tol))
-    out["score_hypotheses"] = (err, ms, plain_ms)
-    print(f"[3 kernels] B1 score_hypotheses N={n} T={hy.shape[0]}: counts "
+    t = hy.shape[0]
+    out["score_hypotheses"] = record(
+        err, ms, plain_ms, 4 * (px.numel() + hy.numel() + 2 * t),
+        OPS_SCORE * n * t)
+    print(f"[3 kernels] B1 score_hypotheses N={n} T={t}: counts "
           f"equal (best {int(num_k.max())}), error sums max abs diff {err:.3e}"
-          f"; {ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+          f"; {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+          f"{out['score_hypotheses']['bound_ms']:.4f} ms", flush=True)
 
     # B2/B3 inputs: the four best hypotheses, their inlier masks and
     # closed-form depths; Huber knee of the production configuration.
@@ -247,12 +388,128 @@ def phase_kernels(dev):
         err = float(np.max(np.abs(theta_k - theta_p)))
         ms = time_ms(lambda: kernel(state, rho, rho))
         plain_ms = time_ms(lambda: plain(state, rho, rho))
-        out[name] = (err, ms, plain_ms)
+        # Read: the pixel record, (rho_prev, rho_cand) and the J masks of
+        # lm_iter_multi; written: (rho_eff, rho_new) and the states.
+        nbytes = 4 * (8 * n + 2 * j * n + (j * n if j > 1 else 0)
+                      + 2 * j * n + 2 * 128 * j)
+        out[name] = record(err, ms, plain_ms, nbytes, OPS_LM * n * j)
         print(f"[3 kernels] {'B2' if j == 1 else 'B3'} {name} J={j} N={n} "
               f"Huber delta={loss_delta:.4g}: one step matches plain (state "
               f"rtol 1e-5; largest diff at slot {worst}); 21 sweeps v, w, "
               f"cost within rtol 1e-4, theta max abs diff {err:.3e}; "
-              f"{ms:.3f} ms/iteration vs plain {plain_ms:.3f} ms", flush=True)
+              f"{ms:.3f} ms/iteration vs plain {plain_ms:.3f} ms, bound "
+              f"{out[name]['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def e2e_inputs(dev, h=H, w=W):
+    """bench.py's e2e input (bench.py:112-115,198-201): the seed-0 uniform
+    image, i1 = its channel 0, i2 = i1 warped by make_flow (exact warp)."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.data.make_flow import make_flow
+    from rs_sfm_tpu_torch.ops.kernels.warp import warp_plain
+
+    image = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.1, 0.9, (h, w, 3)).astype(np.float32))
+    flow = torch.from_numpy(make_flow(h, w))
+    i1 = image[..., 0].contiguous()
+    i2 = warp_plain(i1, flow)
+    return [t.to(dev) for t in (image, i1, i2, flow)]
+
+
+def phase_flow_kernels(dev):
+    """B4-B6 at full-HD shapes of the e2e path; returns {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.flow.dense import dense_flow, linearize
+    from rs_sfm_tpu_torch.ops.kernels import median as km
+    from rs_sfm_tpu_torch.ops.kernels import sor as ks
+    from rs_sfm_tpu_torch.ops.kernels import warp as kw
+
+    _, i1, i2, flow = e2e_inputs(dev)
+    n = H * W
+    out = {}
+
+    # B4: the 1080x1920 plane warped by make_flow; bit-exact.  Yardstick:
+    # F.grid_sample with border padding and align_corners=True samples the
+    # same clamped bilinear function (the port never calls it).
+    got = kw.warp(i1, flow)
+    ref = kw.warp_plain(i1, flow)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "B4 warp bit-exact to plain")
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    grid = torch.stack([2.0 * (xs + flow[..., 0]) / (W - 1) - 1.0,
+                        2.0 * (ys + flow[..., 1]) / (H - 1) - 1.0],
+                       dim=-1)[None]
+
+    def library():
+        return F.grid_sample(i1[None, None], grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_err = float(torch.max(torch.abs(library()[0, 0] - ref)))
+    out["warp"] = record(
+        float(torch.max(torch.abs(got - ref))),
+        time_ms(lambda: kw.warp(i1, flow)),
+        time_ms(lambda: kw.warp_plain(i1, flow)), 4 * n + 8 * n + 4 * n,
+        OPS_WARP * n, library_ms=time_ms(library))
+    r = out["warp"]
+    print(f"[3 kernels] B4 warp {H}x{W} by make_flow: bit-exact to plain; "
+          f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, grid_sample "
+          f"{r['library_ms']:.4f} ms (max abs diff to it {lib_err:.2e}), "
+          f"bound {r['bound_ms']:.4f} ms", flush=True)
+
+    # B6: both planes of make_flow; bit-exact.
+    planes = flow.permute(2, 0, 1).contiguous()
+    got = km.median3_planes(planes)
+    ref = km.median3_plain(planes)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "B6 median bit-exact to plain")
+    out["median3_planes"] = record(
+        float(torch.max(torch.abs(got - ref))),
+        time_ms(lambda: km.median3_planes(planes)),
+        time_ms(lambda: km.median3_plain(planes)), 2 * 4 * 2 * n,
+        OPS_MEDIAN * 2 * n)
+    r = out["median3_planes"]
+    print(f"[3 kernels] B6 median3_planes (2, {H}, {W}): bit-exact to plain;"
+          f" {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.4f} ms", flush=True)
+
+    # B5: 20 sweeps on the finest level's coefficient planes, linearised
+    # around the forward flow the e2e preset finds for this pair (that
+    # call's launches are not counted: the counts are reset before phase 6);
+    # bit-exact.
+    f0 = dense_flow(i1, i2, E2E_FLOW_PRESET)
+    coef = linearize(i1, kw.warp_plain(i2, f0), f0).contiguous()
+    u0 = f0[..., 0].contiguous()
+    v0 = f0[..., 1].contiguous()
+    fc = E2E_FLOW_PRESET
+    prm = dict(iters=fc.iters, omega=fc.omega, lam=fc.smoothness,
+               eps2=fc.eps * fc.eps, wbr=fc.brightness_weight,
+               wgrad=fc.gamma_grad)
+    uk, vk = ks.sor_sweeps(coef, u0, v0, **prm)
+    up, vp = ks.sor_sweeps_plain(coef, u0, v0, **prm)
+    torch.cuda.synchronize()
+    check(torch.equal(uk, up) and torch.equal(vk, vp),
+          "B5 SOR bit-exact to plain")
+    moved = float(torch.max(torch.abs(uk - u0)))
+    check(moved > 0.0, "B5 SOR moved the flow")
+    out["sor_sweeps"] = record(
+        max(float(torch.max(torch.abs(uk - up))),
+            float(torch.max(torch.abs(vk - vp)))),
+        time_ms(lambda: ks.sor_sweeps(coef, u0, v0, **prm)),
+        time_ms(lambda: ks.sor_sweeps_plain(coef, u0, v0, **prm)),
+        4 * (8 + 2 + 2) * n, OPS_SOR * n * prm["iters"])
+    r = out["sor_sweeps"]
+    print(f"[3 kernels] B5 sor_sweeps {H}x{W}, {fc.iters} sweeps: "
+          f"bit-exact to plain (max |du| {moved:.3e} px); {r['ms']:.3f} ms "
+          f"vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms",
+          flush=True)
     return out
 
 
@@ -309,28 +566,25 @@ def check_slice(res, rect, n, what):
 
 
 def phase_slice(dev):
-    """Returns {kernel: launches} over the timed runs of both configs."""
+    """Returns {config: {kernel: launches}} over its timed runs."""
     import numpy as np
     import torch
 
     from rs_sfm_tpu_torch.config import SLICE_CONFIGS
-    from rs_sfm_tpu_torch.ops.kernels import refine_kernels as rk
-    from rs_sfm_tpu_torch.ops.kernels import score as sk
 
     flow, intr = slice_inputs(dev)
     n = H * W
     image = torch.from_numpy(np.random.default_rng(0).uniform(
         0.1, 0.9, (H, W, 3)).astype(np.float32)).to(dev)
-    wrappers = {"score_hypotheses": sk.score_hypotheses,
-                "lm_iter": rk.lm_iter, "lm_iter_multi": rk.lm_iter_multi}
+    wrap = wrappers()
     runs = 3
-    launches = dict.fromkeys(wrappers, 0)
+    launches = {}
     for name, cfg in SLICE_CONFIGS.items():
         gen = torch.Generator(device=dev).manual_seed(1)
         run_slice(flow, intr, cfg, image, gen)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
+        for fn in wrap.values():
             fn.launches = 0
         stages, walls = [], []
         for _ in range(runs):
@@ -339,17 +593,11 @@ def phase_slice(dev):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
             stages.append(st)
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        sweeps = (cfg.refine_iterations + 1 if cfg.refine_starts == 1 else
-                  cfg.refine_winnow_iters + 1
-                  + cfg.refine_iterations - cfg.refine_winnow_iters + 1)
-        expect = {"score_hypotheses": runs,
-                  "lm_iter": runs * sweeps if cfg.refine_starts == 1 else 0,
-                  "lm_iter_multi": runs * sweeps if cfg.refine_starts > 1
-                  else 0}
+        counts = {k: fn.launches for k, fn in wrap.items()}
+        expect = {k: runs * c for k, c in estimation_launches(cfg).items()}
+        expect.update(warp=0, sor_sweeps=0, median3_planes=0)
         check(counts == expect, f"{name}: launches {counts} == {expect}")
-        for k in launches:
-            launches[k] += counts[k]
+        launches[name] = counts
         angle = check_slice(res, rect, n, name)
         med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -411,6 +659,164 @@ def phase_parity(dev):
               f"packed24 image and hit mask bit-exact "
               f"({int(bc.scattered.sum())} hits)", flush=True)
 
+    # The e2e path: dense flow on the card (kernels) and on the CPU (plain
+    # versions) from the same images, then both estimations with the same
+    # RANSAC draws (taken on the CPU's trusted mask).
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
+
+    image_c, i1_c, i2_c, _ = e2e_inputs("cpu", h, w)
+    fb_c = flow_forward_backward(i1_c, i2_c, E2E_FLOW_PRESET)
+    fb_g = flow_forward_backward(i1_c.to(dev), i2_c.to(dev), E2E_FLOW_PRESET)
+    d = torch.linalg.norm(fb_g.flow.cpu() - fb_c.flow, dim=-1).numpy()
+    med, p99 = float(np.median(d)), float(np.percentile(d, 99))
+    occ_diff = float((fb_g.occlusion.cpu() != fb_c.occlusion).float().mean())
+    valid = prepare_flow_inputs(fb_c.flow, intr, GAMMA, E2E_CONFIG)[4]
+    idx = sample_valid_indices(torch.Generator().manual_seed(3),
+                               valid & ~fb_c.occlusion.reshape(-1),
+                               E2E_CONFIG.ransac_trials)
+    rc = estimate_with_feedback(fb_c.flow, intr, GAMMA, E2E_CONFIG,
+                                sample_indices=idx,
+                                pixel_mask=~fb_c.occlusion)
+    rg = estimate_with_feedback(fb_g.flow, intr, GAMMA, E2E_CONFIG,
+                                sample_indices=idx,
+                                pixel_mask=~fb_g.occlusion)
+    vg, vc = unit(rg.v.cpu().numpy()), unit(rc.v.numpy())
+    dv = float(np.max(np.abs(vg * np.sign(vg @ vc) - vc)))
+    dw = float(np.max(np.abs(rg.w.cpu().numpy() - rc.w.numpy())))
+    print(f"[5 parity] e2e {w}x{h} card vs CPU: flow |diff| median {med:.3e}"
+          f" p99 {p99:.3e} max {float(d.max()):.3e} px; occlusion differs "
+          f"on {occ_diff:.3e} of pixels ({float(fb_c.occlusion.float().mean()):.4f}"
+          f" occluded); v diff {dv:.3e}, w diff {dw:.3e}; inliers "
+          f"{int(rg.num_inliers)} vs {int(rc.num_inliers)}", flush=True)
+    check(med <= E2E_GATES["flow_median_px"]
+          and p99 <= E2E_GATES["flow_p99_px"],
+          f"e2e {w}x{h}: flow median {med} / p99 {p99} within gates")
+    check(occ_diff <= E2E_GATES["occlusion_share"],
+          f"e2e {w}x{h}: occlusion masks differ on {occ_diff}")
+    check(dv <= E2E_GATES["v_direction"] and dw <= E2E_GATES["w"],
+          f"e2e {w}x{h}: v diff {dv}, w diff {dw} within gates")
+
+
+def profile_pass(fn):
+    """(device kernels, ms the device was busy, ms the pass took, the six
+    operators called most often as (name, calls)) of one fn() under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = sorted(((a.key, a.count) for a in prof.key_averages()
+                  if a.key.startswith("aten::")), key=lambda kc: -kc[1])
+    return len(kernels), busy_ms, wall_ms, ops[:6]
+
+
+def run_e2e(i1, i2, image, intr, generator):
+    """One pass of the main path; returns (flow result, estimation,
+    rectified, stage ms)."""
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.geom.rspose import scanline_poses
+    from rs_sfm_tpu_torch.rectify.backproject import backproject
+    from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    fb = flow_forward_backward(i1, i2, E2E_FLOW_PRESET, timer=mark)
+    res = estimate_with_feedback(fb.flow, intr, GAMMA, E2E_CONFIG, generator,
+                                 pixel_mask=~fb.occlusion, timer=mark)
+    r, t = scanline_poses(res.v, res.w, res.k, i1.shape[0], GAMMA,
+                          dtype=torch.float32)
+    rect = backproject(image, res.depth_map, r, t, intr)
+    mark("rectify")
+    marks[-1][1].synchronize()
+    stages = {name: marks[i][1].elapsed_time(ev)
+              for i, (name, ev) in enumerate(marks[1:])}
+    return fb, res, rect, stages
+
+
+def phase_e2e(dev):
+    """The main path at full HD; returns {kernel: launches} of the timed
+    passes."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+
+    image, i1, i2, flow = e2e_inputs(dev)
+    _, intr = slice_inputs(dev)
+    n = H * W
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    run_e2e(i1, i2, image, intr, gen)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    wrap = wrappers()
+    runs = 3
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrap.values():
+        fn.launches = 0
+    stages, walls = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fb, res, rect, st = run_e2e(i1, i2, image, intr, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stages.append(st)
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    expect = {**estimation_launches(E2E_CONFIG),
+              **flow_launches(E2E_FLOW_PRESET, H, W)}
+    expect = {k: runs * c for k, c in expect.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    occ = float(fb.occlusion.float().mean())
+    epe = torch.linalg.norm(fb.flow + flow, dim=-1)[~fb.occlusion]
+    print(f"[6 e2e] {W}x{H}: v={res.v.cpu().numpy()} w={res.w.cpu().numpy()}"
+          f" inliers={int(res.num_inliers)}/{n} occluded={occ:.4f}; flow vs "
+          f"-make_flow on unoccluded pixels: median "
+          f"{float(epe.median()):.3f} px", flush=True)
+    print(f"[6 e2e] ms (median of {runs}, CUDA events): "
+          + " ".join(f"{k}={v:.2f}" for k, v in med.items())
+          + f" total={sum(med.values()):.2f}; host wall "
+          f"{statistics.median(walls):.2f} (warm-up {warm_s:.1f} s); peak "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    check(counts == expect, f"e2e launches {counts} == {expect}")
+    for field in ("v", "w", "k", "depth_map", "refine_cost"):
+        check(bool(torch.isfinite(getattr(res, field)).all()),
+              f"e2e: {field} finite")
+    check(tuple(fb.flow.shape) == (H, W, 2)
+          and bool(torch.isfinite(fb.flow).all()), "e2e: flow finite (H, W, 2)")
+    check(tuple(rect.gs_image.shape) == (H, W, 3)
+          and bool(torch.isfinite(rect.gs_image).all()), "e2e: image finite")
+    check(occ < 0.5, f"e2e: occluded share {occ} < 0.5")
+    check(int(res.num_inliers) > 0.25 * n, "e2e: inliers > 0.25 N")
+    # One more pass traced (after the counts were read): the device's busy
+    # share, with the profiler's own host overhead in the traced time.
+    n_kernels, busy, wall, top = profile_pass(
+        lambda: run_e2e(i1, i2, image, intr, gen))
+    print(f"[6 e2e] torch.profiler over one pass: {n_kernels} device "
+          f"kernels, busy {busy:.2f} ms of {wall:.2f} ms traced "
+          f"({100 * busy / wall:.1f} %); most called operators: "
+          + ", ".join(f"{name} {calls}" for name, calls in top), flush=True)
+    return counts
+
 
 def main():
     if not (ROOT / "rs_sfm_tpu_torch" / "csrc").is_dir():
@@ -423,27 +829,24 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    timing = phase_kernels(dev)
-    launches = phase_slice(dev)
+    records = phase_kernels(dev)
+    records.update(phase_flow_kernels(dev))
+    phase_slice(dev)
     phase_parity(dev)
+    launches = phase_e2e(dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 
     from rs_sfm_tpu_torch.ops.kernels import _build
 
-    sources = {"score_hypotheses": ("score", "score.py:85"),
-               "lm_iter": ("lm_iter", "refine_kernels.py:503"),
-               "lm_iter_multi": ("lm_iter", "refine_kernels.py:451")}
     kernels = []
-    for kname, (src, replaces) in sources.items():
-        err, ms, plain_ms = timing[kname]
+    for kname, (src, replaces) in KERNELS.items():
         check(launches[kname] > 0, f"{kname} launched on the main path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": str(_build.source_path(src).relative_to(ROOT)),
             "replaces": "rs_sfm_tpu/ops/pallas/" + replaces,
-            "launches": launches[kname], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+            "launches": launches[kname], **records[kname]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

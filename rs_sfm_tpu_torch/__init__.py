@@ -1,14 +1,17 @@
 """rs_sfm_tpu_torch — the PyTorch + CUDA port of rs_sfm_tpu for one NVIDIA H100.
 
-Rolling-shutter-aware differential SfM (Zhuang et al., ICCV 2017): a dense
-flow field between two rolling-shutter frames goes through a 9-point
-minimal solver inside RANSAC, a Schur-complement Levenberg–Marquardt joint
-refinement, and a z-buffered back-projection to a global-shutter image.
+Rolling-shutter-aware differential SfM (Zhuang et al., ICCV 2017): the
+dense flow between two rolling-shutter frames (pyramidal variational, with
+a forward-backward occlusion test) goes through a 9-point minimal solver
+inside RANSAC, a Schur-complement Levenberg–Marquardt joint refinement,
+model-feedback passes, and a z-buffered back-projection to a global-shutter
+image.
 
 The JAX package `rs_sfm_tpu` stays the reference; this package mirrors its
 layout and module names so each counterpart is easy to find.  Plain tensor
 code is PyTorch; the hot kernels (RANSAC scoring, the fused Schur-LM
-iteration) are hand-written CUDA C++ for sm_90a under `csrc/`, built at
+iteration, the flow's warp, SOR sweeps and median) are hand-written CUDA
+C++ for sm_90a under `csrc/`, built at
 first use by `ops.kernels._build`.  On CPU tensors every kernel wrapper runs
 its plain PyTorch twin, which is what the CPU tests exercise.
 
@@ -30,4 +33,5 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["config", "geom", "solver", "ops", "rectify", "data"]
+__all__ = ["config", "geom", "solver", "ops", "rectify", "data", "flow",
+           "models"]

@@ -1,10 +1,12 @@
 """Pipeline configuration (port of rs_sfm_tpu/config.py, no JAX).
 
 `PipelineConfig` keeps every field of the JAX dataclass with the same name
-and default, so a configuration moves across unchanged (`from_jax`).  The
+and default (as `flow.config.DenseFlowConfig` does for the JAX NamedTuple),
+so a configuration moves across unchanged (`from_jax`).  The
 engine names keep their JAX values: "pallas" selects the fused kernel path
 (the hand-written CUDA kernels of `ops/kernels`), "xla" the plain tensor
-path.
+path.  The dense-flow engines have one path for both values (see
+`flow.config`).
 
 Dtype policy: dense per-pixel tensors are float32 (`DENSE_DTYPE`); the
 minimal solver's tiny matrices run in `CORE_DTYPE` (float64).
@@ -16,7 +18,9 @@ import dataclasses
 
 import torch
 
+from rs_sfm_tpu_torch.flow.config import DenseFlowConfig
 from rs_sfm_tpu_torch.geom.camera import Intrinsics
+from rs_sfm_tpu_torch.models import get_flow_preset
 
 DENSE_DTYPE = torch.float32
 CORE_DTYPE = torch.float64
@@ -77,16 +81,35 @@ ESTIMATION_CONFIG = PipelineConfig(
     refine_engine="pallas", ransac_engine="pallas")
 SLICE_CONFIGS = {"gt_flow": GT_FLOW_CONFIG, "estimation": ESTIMATION_CONFIG}
 
+# The end-to-end main path (bench.py:170-212): dense flow with the
+# variational preset on the kernel engines and a half-resolution backward
+# pass, then the production estimation with 2 warm-start feedback passes of
+# 8 iterations each (bench.py:185-194).
+E2E_FLOW_PRESET = get_flow_preset("variational", warp_engine="pallas",
+                                  sor_engine="pallas", backward_scale=2)
+E2E_CONFIG = dataclasses.replace(ESTIMATION_CONFIG, feedback_passes=2,
+                                 feedback_refine_iterations=8)
+
 
 def from_jax(obj):
-    """The port's counterpart of a JAX `PipelineConfig` or `Intrinsics`.
+    """The port's counterpart of a JAX `PipelineConfig`, `Intrinsics` or
+    `DenseFlowConfig`.
 
-    Reads the fields through `dataclasses.asdict`, so nothing here imports
-    JAX; the class is recognised by its field names.
+    Reads the fields through `dataclasses.asdict` (or a NamedTuple's
+    `_asdict`), so nothing here imports JAX; the class is recognised by its
+    field names.
     """
-    fields = dataclasses.asdict(obj)
-    for cls in (PipelineConfig, Intrinsics):
-        names = {f.name for f in dataclasses.fields(cls)}
-        if set(fields) == names:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        fields = dataclasses.asdict(obj)
+        classes = (PipelineConfig, Intrinsics)
+    elif hasattr(obj, "_asdict"):
+        fields = dict(obj._asdict())
+        classes = (DenseFlowConfig,)
+    else:
+        raise TypeError(f"no port counterpart for {type(obj).__name__}")
+    for cls in classes:
+        names = (cls._fields if cls is DenseFlowConfig
+                 else [f.name for f in dataclasses.fields(cls)])
+        if set(fields) == set(names):
             return cls(**fields)
     raise TypeError(f"no port counterpart for {type(obj).__name__}")

@@ -1,4 +1,4 @@
-"""CUDA kernels B1-B3 against their plain PyTorch versions on the card.
+"""CUDA kernels B1-B6 against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips elsewhere.  The file imports neither JAX nor the JAX package, so it
@@ -13,15 +13,20 @@ evaluate every pixel's error in the same IEEE operations, see
 csrc/score.cu), error sums rtol 1e-5 (summation order).  B2/B3 state rtol
 1e-5, atol 1e-7, with each sum slot also allowed 1e-5 of its
 Cauchy-Schwarz bound (tests/test_torch_refine.py explains both), compared
-at unit damping.
+at unit damping.  B4 warp, B5 SOR and B6 median are bit-exact: each kernel
+runs its plain version's IEEE operations in the same order (B4 and B5 built
+without FMA contraction), and the median uses only min and max.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rs_sfm_tpu_torch.ops.kernels import median as tmedian
 from rs_sfm_tpu_torch.ops.kernels import refine_kernels as trk
 from rs_sfm_tpu_torch.ops.kernels import score as tscore
+from rs_sfm_tpu_torch.ops.kernels import sor as tsor
+from rs_sfm_tpu_torch.ops.kernels import warp as twarp
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
@@ -149,3 +154,80 @@ def test_lm_kernel_is_deterministic(cuda_device):
     b = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# Pyramid shapes of the main path: odd rows and columns, the smallest
+# level (17 x 30) and a level of the half-resolution backward pass.
+FLOW_SHAPES = [(17, 30), (37, 61), (135, 240)]
+
+
+def _smooth_plane(h, w, rng):
+    base = rng.uniform(0.1, 0.9, (h + 4, w + 4)).astype(np.float32)
+    for ax in (0, 1):
+        base = (np.roll(base, 1, ax) + 2 * base + np.roll(base, -1, ax)) / 4
+    return base[2:2 + h, 2:2 + w].copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+def test_warp_kernel_matches_plain(cuda_device, h, w):
+    """Flows of up to +-w/2 px leave the image on every side (clamped
+    samples); a batch of K flows over one plane, P planes over one flow,
+    and one plane by one flow."""
+    rng = np.random.default_rng(h)
+    img = torch.from_numpy(_smooth_plane(h, w, rng)).to(cuda_device)
+    flows = torch.from_numpy(rng.uniform(-w / 2, w / 2, (5, h, w, 2)).astype(
+        np.float32)).to(cuda_device)
+    planes = torch.stack([img, 2.0 * img - 0.3])
+    for a, f in ((img, flows), (planes, flows[0]), (img, flows[1])):
+        before = twarp.warp.launches
+        got = twarp.warp(a, f)
+        torch.cuda.synchronize()
+        assert twarp.warp.launches == before + 1
+        ref = twarp.warp_plain(a, f)
+        assert got.shape == ref.shape
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+def test_median_kernel_matches_plain(cuda_device, h, w):
+    rng = np.random.default_rng(w)
+    x = torch.from_numpy(rng.normal(size=(2, h, w)).astype(np.float32)).to(
+        cuda_device)
+    before = tmedian.median3_planes.launches
+    got = tmedian.median3_planes(x)
+    torch.cuda.synchronize()
+    assert tmedian.median3_planes.launches == before + 1
+    assert torch.equal(got, tmedian.median3_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+def test_sor_kernel_matches_plain(cuda_device, h, w):
+    """Coefficient planes of a real warp (gradients of a smooth image pair)
+    with a flow far from the solution, so the Charbonnier weights vary."""
+    rng = np.random.default_rng(h + w)
+    i1 = _smooth_plane(h, w, rng)
+    i2 = np.roll(i1, (1, 2), (0, 1))
+    gy1, gx1 = np.gradient(i1)
+    gy2, gx2 = np.gradient(i2)
+    gxy, gxx = np.gradient(gx2)
+    gyy, _ = np.gradient(gy2)
+    u0 = rng.normal(scale=0.5, size=(h, w)).astype(np.float32)
+    v0 = rng.normal(scale=0.5, size=(h, w)).astype(np.float32)
+    it = i2 - i1
+    coef = np.stack([gx2, gy2, it - gx2 * u0 - gy2 * v0, gxx, gxy, gyy,
+                     gx2 - gx1 - gxx * u0 - gxy * v0,
+                     gy2 - gy1 - gxy * u0 - gyy * v0]).astype(np.float32)
+    coef, u0, v0 = [torch.from_numpy(a).to(cuda_device)
+                    for a in (coef, u0, v0)]
+    params = dict(iters=7, omega=1.85, lam=0.08, eps2=1e-6, wbr=1.0,
+                  wgrad=0.7)
+    before = tsor.sor_sweeps.launches
+    u_k, v_k = tsor.sor_sweeps(coef, u0, v0, **params)
+    torch.cuda.synchronize()
+    assert tsor.sor_sweeps.launches == before + 2 * params["iters"]
+    u_p, v_p = tsor.sor_sweeps_plain(coef, u0, v0, **params)
+    assert not torch.equal(u_p, u0)
+    assert torch.equal(u_k, u_p) and torch.equal(v_k, v_p)
