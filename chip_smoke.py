@@ -4,10 +4,11 @@
 Drives the port's main path -- dense flow (forward + half-resolution
 backward + occlusion test) -> estimation with two model-feedback passes ->
 per-scanline poses -> packed24 rectification -- at full HD (1920x1080) on
-bench.py's input, and the solver slice (flow field -> RANSAC -> fused
-Schur-LM -> rectification) in both slice configurations, through the
+bench.py's input, the solver slice (flow field -> RANSAC -> fused
+Schur-LM -> rectification) in both slice configurations, the estimation
+sharded over two ranks, and every rectification engine, through the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
-both paths against their plain PyTorch versions.
+each path against their plain PyTorch versions.
 
     python3 chip_smoke.py          # one CUDA device; a few minutes
 
@@ -16,9 +17,10 @@ and the script exits non-zero; nothing is caught and continued):
   [1 device]  the card's name, then nvidia-smi's "name, power.limit" line
   [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds and
               ptxas usage
-  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi, B4 warp, B5
-              sor_sweeps, B6 median3_planes vs their plain versions at
-              full-HD shapes; median ms of 20 timed runs of each, of its
+  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi, B7 lm_sums_multi +
+              lm_decide, B4 warp, B5 sor_sweeps, B6 median3_planes vs
+              their plain versions at full-HD shapes (B7 also against B3,
+              bit for bit); median ms of 20 timed runs of each, of its
               plain version and (B4) of F.grid_sample, and its bound
   [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
               per-stage ms (CUDA events), peak memory, launch counts
@@ -28,6 +30,13 @@ and the script exits non-zero; nothing is caught and continued):
               per-stage ms, host wall time, peak memory, launch counts of
               all six kernels asserted against the configuration's; then
               one pass under torch.profiler (device kernels, busy share)
+  [7 sharded] the estimation at full HD sharded over 2 ranks that share the
+              one card over gloo (NCCL refuses two ranks on one device):
+              both ranks' scalars bit-identical, and within gates of the
+              unsharded pass on the same hypotheses; B7 launches per rank
+  [8 rectify] B8 zbuffer_splat vs its plain version on the e2e pass's depth
+              map and poses (bit-exact), then the five engines, fill_cracks
+              and small_motion_warp at full HD; "pallas" equals "scatter"
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -47,6 +56,10 @@ GAMMA = 0.9
 # bench.py's intrinsics for the full-HD flow field.
 INTR_ARGS = dict(fx=1803.3, fy=1799.4, cx=945.3, cy=544.7)
 REPEATS = 20
+# Sharded (2 ranks) vs unsharded estimation on the same hypotheses (phase
+# 7): the sums are added in another order, so the gates of float32
+# summation order the CPU tests use (tests/test_torch_parallel.py).
+SHARDED_GATES = {"v_direction": 2e-4, "w": 1e-5, "inlier_share": 1e-3}
 # Card-vs-CPU gates of the 270x480 e2e parity (phase 5).  Measured on an
 # NVIDIA H100: the flow and the occlusion mask bit-exact (every kernel and
 # every plain op rounds as IEEE float32 does), v 9e-7 and w 7e-9 apart
@@ -67,6 +80,9 @@ OPS_LM = 250
 OPS_WARP = 21
 OPS_SOR = 92
 OPS_MEDIAN = 38
+# Per source pixel (zbuffer.cu): two adds and floors, four bound compares,
+# the target index and one 64-bit atomic min.
+OPS_ZBUFFER = 10
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -75,7 +91,12 @@ KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "warp": ("warp", "warp.py:96"),
     "sor_sweeps": ("sor", "sor.py:158"),
     "median3_planes": ("median", "median.py:72"),
+    "lm_sums_multi": ("lm_iter", "refine_kernels.py:592"),
+    "zbuffer_splat": ("zbuffer", "zbuffer.py:142"),
 }
+# Wrappers whose kernels the e2e main path does not run (B7's decide half
+# counts beside its sums half).
+OFF_MAIN_PATH = {"lm_sums_multi": 0, "lm_decide": 0, "zbuffer_splat": 0}
 
 
 def check(ok, what):
@@ -112,6 +133,24 @@ def time_ms(fn, runs=REPEATS, warmup=3):
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
+def wall_ms(fn, runs=10, warmup=2):
+    """Median host wall time of fn() followed by a synchronize: for calls
+    that copy from the host (a tensor made from a Python number), which a
+    backlog behind time_ms's spin kernel would stall."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def unit(v):
     import numpy as np
 
@@ -141,11 +180,21 @@ def wrappers():
     from rs_sfm_tpu_torch.ops.kernels import score as sk
     from rs_sfm_tpu_torch.ops.kernels import sor as ks
     from rs_sfm_tpu_torch.ops.kernels import warp as kw
+    from rs_sfm_tpu_torch.ops.kernels import zbuffer as kz
 
     return {"score_hypotheses": sk.score_hypotheses, "lm_iter": rk.lm_iter,
             "lm_iter_multi": rk.lm_iter_multi, "warp": kw.warp,
             "sor_sweeps": ks.sor_sweeps,
-            "median3_planes": km.median3_planes}
+            "median3_planes": km.median3_planes,
+            "lm_sums_multi": rk.lm_sums_multi, "lm_decide": rk.lm_decide,
+            "zbuffer_splat": kz.zbuffer_splat}
+
+
+def reset_counts():
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    return wrap
 
 
 def _dense_launches(cfg, h, w):
@@ -399,7 +448,75 @@ def phase_kernels(dev):
               f"cost within rtol 1e-4, theta max abs diff {err:.3e}; "
               f"{ms:.3f} ms/iteration vs plain {plain_ms:.3f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms", flush=True)
+        b7 = check_split_lm(st, pxl, masks, rp, rc, loss_delta, coords,
+                            flow_n, alpha, alpha_k, v_all[top[:j]],
+                            w_all[top[:j]], k_all[top[:j]], rho)
+        if j == 4:  # the production winnow's J
+            out["lm_sums_multi"] = b7
     return out
+
+
+def check_split_lm(state, pxl, masks, rho_prev, rho_cand, loss_delta,
+                   coords, flow_n, alpha, alpha_k, v0, w0, k0, rho0):
+    """B7 at one J: the sums and decide kernels against their plain versions
+    on a state with history (unit damping, as B2/B3's one-step check), the
+    pair against B3's fused launch bit for bit, and a 20-iteration sharded
+    refinement with no group against refine_pallas_multi bit for bit.
+    Returns B7's record (ms of one sums -> decide iteration)."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import refine_kernels as rk
+    from rs_sfm_tpu_torch.solver import refine_fused as rf
+
+    j, n = rho_prev.shape
+    st = state.clone()
+    st[:, rk.S_LAM] = 3.0
+    re_k, rn_k, sums_k = rk.lm_sums_multi(st, pxl, masks, rho_prev, rho_cand,
+                                          loss_delta)
+    new_k = rk.lm_decide(st, sums_k)
+    re_p, rn_p, sums_p = rk.lm_sums_multi_plain(st, pxl, masks, rho_prev,
+                                                rho_cand, loss_delta)
+    new_p = rk.lm_decide_plain(st, sums_k)
+    fused = rk.lm_iter_multi(st, pxl, masks, rho_prev, rho_cand, loss_delta)
+    torch.cuda.synchronize()
+    bad = rk.sums_mismatches(sums_k.cpu().numpy(), sums_p.cpu().numpy())
+    check(not bad, f"B7 J={j} sums vs plain: {bad[:5]}")
+    for what, g, r in (("rho_eff", re_k, re_p), ("rho_new", rn_k, rn_p),
+                       ("decide", new_k, new_p)):
+        bad = rk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
+        check(not bad, f"B7 J={j} {what} vs plain: {bad[:5]}")
+    check(all(torch.equal(a, b) for a, b in zip((new_k, re_k, rn_k), fused)),
+          f"B7 J={j}: sums -> decide bit-identical to B3")
+    kw = dict(optimize_k=False, iterations=20, rel_tol=0.0,
+              loss_delta=loss_delta)
+    args = (coords, flow_n, alpha, alpha_k, masks > 0.5, v0, w0, k0, rho0)
+    split = rf.refine_pallas_multi_sharded(*args, group=None, **kw)
+    whole = rf.refine_pallas_multi(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(split, whole)),
+          f"B7 J={j}: 20-iteration world-1 refinement bit-identical to B3")
+    err = float(torch.max(torch.abs(new_k - rk.lm_decide_plain(st, sums_p))
+                          [:, 0:14]))
+
+    def kernel():
+        return rk.lm_decide(st, rk.lm_sums_multi(
+            st, pxl, masks, rho_prev, rho_cand, loss_delta)[2])
+
+    def plain():
+        return rk.lm_decide_plain(st, rk.lm_sums_multi_plain(
+            st, pxl, masks, rho_prev, rho_cand, loss_delta)[2])
+
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    # Read: the pixel record, the J masks and (rho_prev, rho_cand); written:
+    # (rho_eff, rho_new), the sums and the states.
+    nbytes = 4 * (8 * n + 3 * j * n + 2 * j * n + j * rk.N_SUMS + 2 * 128 * j)
+    rec = record(err, ms, plain_ms, nbytes, OPS_LM * n * j)
+    print(f"[3 kernels] B7 lm_sums_multi + lm_decide J={j} N={n}: sums, rho "
+          f"and decide match plain (B3's tolerances), sums -> decide and a "
+          f"20-iteration world-1 refinement bit-identical to B3; theta max "
+          f"abs diff to the plain chain {err:.3e}; {ms:.3f} ms/iteration vs "
+          f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms",
+          flush=True)
+    return rec
 
 
 def e2e_inputs(dev, h=H, w=W):
@@ -595,7 +712,8 @@ def phase_slice(dev):
             stages.append(st)
         counts = {k: fn.launches for k, fn in wrap.items()}
         expect = {k: runs * c for k, c in estimation_launches(cfg).items()}
-        expect.update(warp=0, sor_sweeps=0, median3_planes=0)
+        expect.update(warp=0, sor_sweeps=0, median3_planes=0,
+                      **OFF_MAIN_PATH)
         check(counts == expect, f"{name}: launches {counts} == {expect}")
         launches[name] = counts
         angle = check_slice(res, rect, n, name)
@@ -782,7 +900,7 @@ def phase_e2e(dev):
         stages.append(st)
     counts = {k: fn.launches for k, fn in wrap.items()}
     expect = {**estimation_launches(E2E_CONFIG),
-              **flow_launches(E2E_FLOW_PRESET, H, W)}
+              **flow_launches(E2E_FLOW_PRESET, H, W), **OFF_MAIN_PATH}
     expect = {k: runs * c for k, c in expect.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
@@ -815,7 +933,192 @@ def phase_e2e(dev):
           f"kernels, busy {busy:.2f} ms of {wall:.2f} ms traced "
           f"({100 * busy / wall:.1f} %); most called operators: "
           + ", ".join(f"{name} {calls}" for name, calls in top), flush=True)
-    return counts
+    return counts, (image, res, intr)
+
+
+def sharded_rank(rank, world, flow_np, intr, draws, device):
+    """One rank of phase 7 (run by parallel.launch.spawn in a fresh process
+    on `device`, card 0 here): a warm-up pass, then one timed pass of the
+    sharded estimation with the launch counts reset just before it."""
+    import torch
+    import torch.distributed as dist
+
+    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG
+    from rs_sfm_tpu_torch.parallel.api import estimate_sharded
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    run = estimate_sharded(dist.group.WORLD, intr, GAMMA, ESTIMATION_CONFIG)
+    flow = torch.from_numpy(flow_np).to(dev)
+    run(flow, sample_indices=draws)
+    sync()
+    wrap = reset_counts()
+    t0 = time.perf_counter()
+    res = run(flow, sample_indices=draws)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"v": res.v.cpu().numpy(), "w": res.w.cpu().numpy(),
+            "k": res.k.cpu().numpy(), "num_inliers": int(res.num_inliers),
+            "rows": res.depth_map.shape[0], "ms": ms,
+            "launches": {k: fn.launches for k, fn in wrap.items()}}
+
+
+def phase_sharded(dev):
+    """The estimation sharded over 2 ranks on the one card; returns rank 0's
+    launch counts of the timed pass."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG as cfg
+    from rs_sfm_tpu_torch.parallel.api import pool_pixels
+    from rs_sfm_tpu_torch.parallel.launch import spawn
+    from rs_sfm_tpu_torch.solver.pipeline import (estimate_from_flow,
+                                                  prepare_flow_inputs)
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    world = 2
+    flow, intr = slice_inputs(dev)
+    n = H * W
+    # Draws into the shared pool, and the same pixels for the unsharded pass.
+    valid = prepare_flow_inputs(flow, intr, GAMMA, cfg)[4].cpu().numpy()
+    pixel = pool_pixels(H, W, world, cfg.ransac_sample_pool)
+    pool_valid = valid[np.minimum(pixel, n - 1)] & (pixel < n)
+    draws = sample_valid_indices(torch.Generator().manual_seed(4),
+                                 torch.from_numpy(pool_valid),
+                                 cfg.ransac_trials).numpy()
+    estimate_from_flow(flow, intr, GAMMA, cfg, sample_indices=pixel[draws])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = estimate_from_flow(flow, intr, GAMMA, cfg,
+                             sample_indices=pixel[draws])
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    outs = spawn(sharded_rank, world, flow.cpu().numpy(), intr, draws,
+                 str(dev))
+    spawn_s = time.perf_counter() - t0
+    for o in outs[1:]:
+        for f in ("v", "w", "k", "num_inliers"):
+            check(np.array_equal(o[f], outs[0][f]),
+                  f"sharded: {f} bit-identical on both ranks")
+    check([o["rows"] for o in outs] == [H // world] * world,
+          "sharded: each rank holds its block of rows")
+    expect = {k: 0 for k in outs[0]["launches"]}
+    multi = estimation_launches(cfg)["lm_iter_multi"]
+    expect.update(score_hypotheses=1, lm_sums_multi=multi, lm_decide=multi)
+    for o in outs:
+        check(o["launches"] == expect,
+              f"sharded launches {o['launches']} == {expect}")
+    got = outs[0]
+    rank_ms = ", ".join(f"{o['ms']:.2f}" for o in outs)
+    vs, vr = unit(got["v"]), unit(ref.v.cpu().numpy())
+    dv = float(np.max(np.abs(vs * np.sign(vs @ vr) - vr)))
+    dw = float(np.max(np.abs(got["w"] - ref.w.cpu().numpy())))
+    dn = abs(got["num_inliers"] - int(ref.num_inliers))
+    print(f"[7 sharded] estimation {W}x{H} over {world} ranks sharing one "
+          f"card (gloo): v={got['v']} w={got['w']} inliers="
+          f"{got['num_inliers']}/{n}, bit-identical on both ranks; vs the "
+          f"unsharded pass on the same hypotheses: v diff {dv:.3e}, w diff "
+          f"{dw:.3e}, inliers {int(ref.num_inliers)} (gates "
+          f"{SHARDED_GATES}); B7 launches per rank {multi} sums + {multi} "
+          f"decide; pass ms per rank {rank_ms} (two ranks on one card) vs "
+          f"unsharded {ref_ms:.2f}; spawn + both ranks {spawn_s:.1f} s",
+          flush=True)
+    check(dv <= SHARDED_GATES["v_direction"] and dw <= SHARDED_GATES["w"],
+          f"sharded: v diff {dv}, w diff {dw} within gates")
+    check(dn <= SHARDED_GATES["inlier_share"] * n,
+          f"sharded: inliers differ by {dn}")
+    check(got["num_inliers"] > 0.9 * n, "sharded: inliers > 0.9 N")
+    return got["launches"]
+
+
+def phase_rectify(dev, e2e):
+    """B8 and the rectification engines at full HD on the last e2e pass's
+    image, depth map and scanline poses; returns ({kernel: launches} of one
+    backproject(method="pallas") call, B8's record)."""
+    import torch
+
+    from rs_sfm_tpu_torch.geom.rspose import scanline_poses
+    from rs_sfm_tpu_torch.ops.kernels import zbuffer as kz
+    from rs_sfm_tpu_torch.rectify.backproject import (_resolve_packed24,
+                                                      backproject,
+                                                      splat_inputs)
+    from rs_sfm_tpu_torch.rectify.crackfill import fill_cracks
+    from rs_sfm_tpu_torch.rectify.warp import small_motion_warp
+
+    image, res, intr = e2e
+    n = H * W
+    r, t = scanline_poses(res.v, res.w, res.k, H, GAMMA, dtype=torch.float32)
+    depth = res.depth_map
+
+    wrap = reset_counts()
+    bp = backproject(image, depth, r, t, intr, method="pallas")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrap.items()}
+    check(launches == {**{k: 0 for k in wrap}, "zbuffer_splat": 1},
+          f"rectify pallas launches {launches}")
+
+    # B8 on that call's inputs against its plain version: bit-exact.
+    args = splat_inputs(image, depth, r, t, intr)
+    gs_k, hit_k = kz.zbuffer_splat(*args)
+    gs_p, hit_p = kz.zbuffer_splat_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(hit_k, hit_p) and torch.equal(gs_k, gs_p),
+          "B8 zbuffer_splat bit-exact to plain")
+    live = int(torch.isfinite(args[2]).sum())
+    # Yardstick (never called by the port): the packed24 engine's conflict
+    # resolution, key packing and its scatter_reduce_, on the same splats.
+    flat, d = kz.splat_targets(*args[:3])
+    colors = image.reshape(n, 3)
+    rec = record(float(torch.max(torch.abs(gs_k - gs_p))),
+                 time_ms(lambda: kz.zbuffer_splat(*args)),
+                 time_ms(lambda: kz.zbuffer_splat_plain(*args)),
+                 4 * 3 * n + 4 * 3 * n + 4 * 3 * n + n, OPS_ZBUFFER * n)
+    packed24_ms = time_ms(lambda: _resolve_packed24(flat, d, colors, n,
+                                                    image))
+    print(f"[8 rectify] B8 zbuffer_splat {H}x{W} on the e2e depth map "
+          f"({live} live splats, {int(hit_k.sum())} hit targets): bit-exact "
+          f"to plain; {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, "
+          f"packed24 resolve {packed24_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms", flush=True)
+
+    engines = {}
+    for method in ("packed24", "packed", "sort", "scatter", "pallas"):
+        engines[method] = backproject(image, depth, r, t, intr, method=method)
+        torch.cuda.synchronize()
+        out = engines[method]
+        check(tuple(out.gs_image.shape) == (H, W, 3)
+              and bool(torch.isfinite(out.gs_image).all()),
+              f"rectify {method}: image finite (H, W, 3)")
+        # Every engine hits exactly the targets some live source reaches.
+        check(torch.equal(out.scattered, bp.scattered),
+              f"rectify {method}: hit mask equals pallas's")
+    for f in ("gs_image", "scattered", "coords_3d", "valid"):
+        check(torch.equal(getattr(engines["pallas"], f),
+                          getattr(engines["scatter"], f)),
+              f"rectify: pallas {f} equals scatter's")
+    ms = {m: wall_ms(lambda m=m: backproject(image, depth, r, t, intr,
+                                             method=m))
+          for m in engines}
+    holes = engines["scatter"].gs_image
+    filled = fill_cracks(holes)
+    smw = small_motion_warp(image, depth, res.v, res.w, res.k, GAMMA, intr)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(filled).all()), "fill_cracks: image finite")
+    check(int(smw.scattered.sum()) > 0.5 * int(bp.scattered.sum()),
+          "small_motion_warp: hits")
+    ms["fill_cracks"] = wall_ms(lambda: fill_cracks(holes))
+    ms["small_motion_warp"] = wall_ms(lambda: small_motion_warp(
+        image, depth, res.v, res.w, res.k, GAMMA, intr))
+    print(f"[8 rectify] {W}x{H}: pallas equals scatter (image, hit mask, "
+          f"points); every engine's hit mask equal ({int(bp.scattered.sum())}"
+          f" of {n}); fill_cracks filled {int((filled != holes).any(-1).sum())}"
+          f" pixels; small_motion_warp hit {int(smw.scattered.sum())}; ms "
+          f"per call (median of 10, host wall with synchronize): "
+          + " ".join(f"{k}={v:.3f}" for k, v in ms.items()), flush=True)
+    return launches, rec
 
 
 def main():
@@ -833,7 +1136,10 @@ def main():
     records.update(phase_flow_kernels(dev))
     phase_slice(dev)
     phase_parity(dev)
-    launches = phase_e2e(dev)
+    launches, e2e = phase_e2e(dev)
+    launches["lm_sums_multi"] = phase_sharded(dev)["lm_sums_multi"]
+    rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e)
+    launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 

@@ -34,8 +34,17 @@
 // run, then a butterfly across the warp -- with no float atomics, so
 // repeated runs are bit-identical; then one thread per start makes the
 // accept decision and solves the 7x7 system.  All products are CUDA-core
-// FMAs in float32: no tensor cores, no TF32.  The same split serves the
-// sharded path later (sums, all-reduce, decide).
+// FMAs in float32: no tensor cores, no TF32.
+//
+// The sharded path (rs_sfm_tpu/ops/pallas/refine_kernels.py::lm_sums_multi
+// with lm_decide, driven by solver/refine_pallas.py::
+// refine_pallas_multi_sharded) uses the same two halves as separate
+// launches: lm_sums_launch runs the sweep and the same fixed-order reduction
+// over blocks into a (J, 71) buffer in device memory, the caller all-reduces
+// those sums across ranks, and lm_decide_launch runs the decide half on
+// them.  Both halves are the device functions reduce_partials and
+// decide_and_solve that the fused decide kernel calls, so at world size 1
+// the split is bit-identical to lm_iter_launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -288,15 +297,13 @@ __device__ void decide_and_solve(const float* st, const float* sums_cand,
   for (int i = 0; i < NSUMS; ++i) out[S_SUMS + i] = sums[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
-lm_decide_kernel(const float* __restrict__ state_in,
-                 const float* __restrict__ partial, int nblk, int nj,
-                 float* __restrict__ state_out) {
-  __shared__ float sums_cand[MAXJ][NSUMS];
+// Fixed-order tree over the blocks' partials (nblk, nj, 71) into
+// sums[j * 71 + s]: a strided run per lane, then a butterfly across the
+// warp.  Run by one block of THREADS threads.
+__device__ void reduce_partials(const float* __restrict__ partial, int nblk,
+                                int nj, float* sums) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // Fixed-order tree over the blocks: a strided run per lane, then a
-  // butterfly across the warp.
   for (int idx = warp; idx < nj * NSUMS; idx += WARPS) {
     float v = 0.0f;
     for (int b = lane; b < nblk; b += 32)
@@ -304,14 +311,39 @@ lm_decide_kernel(const float* __restrict__ state_in,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) sums_cand[idx / NSUMS][idx % NSUMS] = v;
+    if (lane == 0) sums[idx] = v;
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+lm_decide_kernel(const float* __restrict__ state_in,
+                 const float* __restrict__ partial, int nblk, int nj,
+                 float* __restrict__ state_out) {
+  __shared__ float sums_cand[MAXJ * NSUMS];
+  reduce_partials(partial, nblk, nj, sums_cand);
   __syncthreads();
   if (threadIdx.x < nj) {
     const int j = threadIdx.x;
-    decide_and_solve(state_in + (int64_t)j * 128, sums_cand[j],
+    decide_and_solve(state_in + (int64_t)j * 128, sums_cand + j * NSUMS,
                      state_out + (int64_t)j * 128);
   }
+}
+
+// The sharded path's halves: the reduction alone, into device memory ...
+__global__ void __launch_bounds__(THREADS)
+lm_reduce_kernel(const float* __restrict__ partial, int nblk, int nj,
+                 float* __restrict__ sums) {
+  reduce_partials(partial, nblk, nj, sums);
+}
+
+// ... and the decide step alone, on (J, 71) sums already reduced.
+__global__ void lm_decide_sums_kernel(const float* __restrict__ state_in,
+                                      const float* __restrict__ sums, int nj,
+                                      float* __restrict__ state_out) {
+  const int j = threadIdx.x;
+  if (j < nj)
+    decide_and_solve(state_in + (int64_t)j * 128, sums + j * NSUMS,
+                     state_out + (int64_t)j * 128);
 }
 
 }  // namespace
@@ -339,5 +371,33 @@ extern "C" int lm_iter_launch(const float* state_in, const float* px,
   if (err != cudaSuccess) return (int)err;
   lm_decide_kernel<<<1, THREADS, 0, s>>>(state_in, partial, nblk, nj,
                                          state_out);
+  return (int)cudaGetLastError();
+}
+
+// The pixel-sweep half for J starts: the same sweep kernel, then the same
+// fixed-order reduction over blocks, written to sums (J, 71).
+extern "C" int lm_sums_launch(const float* state_in, const float* px,
+                              long long n, long long px_stride,
+                              const float* masks, long long mask_stride,
+                              const float* rho_prev, const float* rho_cand,
+                              long long rho_stride, int nj, float loss_delta,
+                              float* rho_eff, float* rho_new, float* partial,
+                              int nblk, float* sums, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  lm_sweep_kernel<<<dim3(nblk, nj), THREADS, 0, s>>>(
+      state_in, px, (int64_t)n, (int64_t)px_stride, masks,
+      (int64_t)mask_stride, rho_prev, rho_cand, (int64_t)rho_stride,
+      loss_delta, rho_eff, rho_new, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lm_reduce_kernel<<<1, THREADS, 0, s>>>(partial, nblk, nj, sums);
+  return (int)cudaGetLastError();
+}
+
+// The decide half: state_in (J, 128) and sums (J, 71) -> state_out (J, 128).
+extern "C" int lm_decide_launch(const float* state_in, const float* sums,
+                                int nj, float* state_out, void* stream) {
+  lm_decide_sums_kernel<<<1, MAXJ, 0, (cudaStream_t)stream>>>(
+      state_in, sums, nj, state_out);
   return (int)cudaGetLastError();
 }

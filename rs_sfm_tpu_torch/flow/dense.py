@@ -374,6 +374,17 @@ def pyramid_levels(h: int, w: int, levels: int) -> int:
 
 
 def _as_tensor(image, device=None):
+    """`image` as a float32 tensor.  A tensor stays on its device, which is
+    the caller's choice (the CPU tests pass CPU tensors); anything else goes
+    to `device`, by default the CUDA device, and without one this raises
+    rather than running the flow on the CPU unasked."""
+    if not torch.is_tensor(image) and device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dense flow: no CUDA device for a non-tensor image; pass "
+                "torch tensors on the device to run on (CPU tensors run the "
+                "kernels' plain versions)")
+        device = torch.device("cuda", torch.cuda.current_device())
     t = torch.as_tensor(image, device=device)
     return t if t.dtype == torch.float32 else t.to(torch.float32)
 
@@ -384,8 +395,8 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
     ambiguity mask.
 
     Args:
-      image1, image2: (H, W[, 3]) float32 images in [0, 1], on the device
-        to run on.
+      image1, image2: (H, W[, 3]) float32 images in [0, 1]: tensors on the
+        device to run on, or arrays, which go to the CUDA device.
       cfg: DenseFlowConfig.
       prior: not ported (the relock pass); must be None.
 

@@ -33,7 +33,7 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the sources).
 _EXTRA_FLAGS = {"score": ["-fmad=false"], "lm_iter": [],
                 "warp": ["-fmad=false"], "sor": ["-fmad=false"],
-                "median": []}
+                "median": [], "zbuffer": []}
 SOURCES = tuple(f"{name}.cu" for name in _EXTRA_FLAGS)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

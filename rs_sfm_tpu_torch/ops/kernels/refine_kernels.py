@@ -4,6 +4,9 @@ their plain PyTorch twins (port of rs_sfm_tpu/ops/pallas/refine_kernels.py).
 One call = one LM iteration in "pipelined accept" form: depth merge,
 VarPro depth update, the 71 reduction sums at the candidate, accept/reject,
 lambda schedule and the damped 7x7 solve (see the JAX module docstring).
+The sharded refinement runs the two halves apart (the JAX lm_sums_multi and
+lm_decide): `lm_sums_multi` returns the (J, 71) sums of a rank's pixels,
+the caller all-reduces them, and `lm_decide` makes the step on the totals.
 
 Packed pixel fields (rows of an (8, N) float32 tensor):
   0 x   1 y   2 ux   3 uy   4 alpha   5 alpha_k   6 mask (single start)   7 unused
@@ -77,6 +80,18 @@ def state_mismatches(got, ref, rtol: float = 1e-5, atol: float = 1e-7):
     if ref.shape[1] == 128:
         sl = slice(S_SUMS, S_SUMS + N_SUMS)
         tol[:, sl] = np.maximum(tol[:, sl], rtol * sum_bounds(ref[:, sl]))
+    bad = np.abs(got - ref) > tol
+    return [(int(j), int(i), ref[j, i], got[j, i])
+            for j, i in zip(*np.nonzero(bad))]
+
+
+def sums_mismatches(got, ref, rtol: float = 1e-5, atol: float = 1e-7):
+    """[(start, slot, ref, got)] where two (J, 71) sum tables differ by more
+    than atol + rtol·|ref| and by more than rtol of the slot's
+    `sum_bounds`."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    tol = np.maximum(atol + rtol * np.abs(ref), rtol * sum_bounds(ref))
     bad = np.abs(got - ref) > tol
     return [(int(j), int(i), ref[j, i], got[j, i])
             for j, i in zip(*np.nonzero(bad))]
@@ -236,6 +251,19 @@ def _decide(state, sums_cand):
     return out
 
 
+def lm_sums_multi_plain(state, px, masks, rho_prev, rho_cand,
+                        loss_delta: float = 0.0):
+    """Plain PyTorch version of `lm_sums_multi`: (rho_eff (J, N),
+    rho_new (J, N), sums (J, 71))."""
+    return _reduce_starts(px, masks, rho_prev, rho_cand, state,
+                          float(loss_delta))
+
+
+def lm_decide_plain(state, sums):
+    """Plain PyTorch version of `lm_decide`: the new (J, 128) state."""
+    return _decide(state, sums)
+
+
 def lm_iter_multi_plain(state, px, masks, rho_prev, rho_cand,
                         loss_delta: float = 0.0):
     """Plain PyTorch version of one LM iteration for J starts.
@@ -272,6 +300,11 @@ def _lib():
         lib.lm_iter_launch.argtypes = [p, p, ll, ll, p, ll, p, p, ll, i,
                                        ctypes.c_float, p, p, p, p, i, p]
         lib.lm_iter_launch.restype = ctypes.c_int
+        lib.lm_sums_launch.argtypes = [p, p, ll, ll, p, ll, p, p, ll, i,
+                                       ctypes.c_float, p, p, p, i, p, p]
+        lib.lm_sums_launch.restype = ctypes.c_int
+        lib.lm_decide_launch.argtypes = [p, p, i, p, p]
+        lib.lm_decide_launch.restype = ctypes.c_int
         lib.lm_pixels_per_block.restype = ctypes.c_int
         lib.lm_max_starts.restype = ctypes.c_int
         lib._typed = True
@@ -372,3 +405,90 @@ def lm_iter(state, px, rho_prev, rho_cand, loss_delta: float = 0.0):
 
 
 lm_iter.launches = 0
+
+
+def lm_sums_multi(state, px, masks, rho_prev, rho_cand,
+                  loss_delta: float = 0.0):
+    """The pixel-sweep half of one LM iteration for J starts (the JAX
+    lm_sums_multi): the depth merge, the VarPro update and the 71 sums at
+    the candidate over these pixels, for a caller that sums them across
+    shards before `lm_decide`.
+
+    Shapes as `lm_iter_multi`.  On CUDA tensors this launches the sweep and
+    reduction kernels of csrc/lm_iter.cu (counted in
+    `lm_sums_multi.launches`); on CPU tensors it runs
+    `lm_sums_multi_plain`.
+
+    Returns (rho_eff (J, N), rho_new (J, N), sums (J, 71)).
+    """
+    _check(state, px, masks, rho_prev, rho_cand)
+    if px.device.type == "cpu":
+        return lm_sums_multi_plain(state, px, masks, rho_prev, rho_cand,
+                                   loss_delta)
+    if px.device.type != "cuda":
+        raise ValueError(f"unsupported device {px.device}")
+    lib = _lib()
+    j, n = rho_prev.shape
+    if j > lib.lm_max_starts():
+        raise ValueError(f"at most {lib.lm_max_starts()} starts, got {j}")
+    nblk = max(1, -(-n // lib.lm_pixels_per_block()))
+    dev = px.device
+    with torch.cuda.device(dev):
+        rho_eff = torch.empty((j, n), dtype=torch.float32, device=dev)
+        rho_new = torch.empty((j, n), dtype=torch.float32, device=dev)
+        partial = torch.empty((nblk, j, N_SUMS), dtype=torch.float32,
+                              device=dev)
+        sums = torch.empty((j, N_SUMS), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.lm_sums_launch(
+            state.data_ptr(), px.data_ptr(), n, n, masks.data_ptr(),
+            masks.stride(0), rho_prev.data_ptr(), rho_cand.data_ptr(), n, j,
+            float(loss_delta), rho_eff.data_ptr(), rho_new.data_ptr(),
+            partial.data_ptr(), nblk, sums.data_ptr(), stream),
+            "lm_sums_launch")
+    lm_sums_multi.launches += 1
+    return rho_eff, rho_new, sums
+
+
+lm_sums_multi.launches = 0
+
+
+def lm_decide(state, sums):
+    """The decide half of one LM iteration (the JAX lm_decide): accept or
+    reject, the lambda schedule and the damped 7x7 solve on the (J, 71)
+    sums, summed over every shard.
+
+    state (J, 128), sums (J, 71), float32.  On CUDA tensors this launches
+    the decide kernel of csrc/lm_iter.cu (counted in `lm_decide.launches`);
+    on CPU tensors it runs `lm_decide_plain`.  Returns the new (J, 128)
+    state.
+    """
+    j = state.shape[0]
+    if state.shape != (j, 128) or sums.shape != (j, N_SUMS):
+        raise ValueError(f"state must be (J, 128) and sums (J, {N_SUMS}), "
+                         f"got {tuple(state.shape)} and {tuple(sums.shape)}")
+    for name, t in (("state", state), ("sums", sums)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != state.device:
+            raise ValueError(f"sums on {sums.device}, state on {state.device}")
+    if state.device.type == "cpu":
+        return lm_decide_plain(state, sums)
+    if state.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.device}")
+    lib = _lib()
+    if j > lib.lm_max_starts():
+        raise ValueError(f"at most {lib.lm_max_starts()} starts, got {j}")
+    st, sm = state.contiguous(), sums.contiguous()
+    dev = state.device
+    with torch.cuda.device(dev):
+        out = torch.empty((j, 128), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.lm_decide_launch(st.data_ptr(), sm.data_ptr(), j,
+                                          out.data_ptr(), stream),
+                     "lm_decide_launch")
+    lm_decide.launches += 1
+    return out
+
+
+lm_decide.launches = 0

@@ -8,10 +8,17 @@ point that adds the model-feedback passes (flow/feedback.py) with
 warm-started refinement.  Every tensor stays on the flow field's device; on
 the card the scoring and LM iterations run the hand-written kernels.
 
+Under scanline-block sharding (`group`, parallel/api.py::estimate_sharded)
+each rank runs this function on its block of rows: RANSAC shares its
+sample pool and votes, the refinement all-reduces its sums, and the
+re-votes, inlier counts and sign flip sum over the group, so every scalar
+output is the same on all ranks and the per-pixel outputs are the rank's
+rows.
+
 Not ported yet: the acceleration model and its k-scan, the second winnow
-stage, the two-stage prescore, the sharded path (`axis_name`), the
-XLA-style refinement engine, and of the feedback options the basin re-vote,
-the decimated inpainting and the "full" re-estimation mode.
+stage, the two-stage prescore, the XLA-style refinement engine, and of the
+feedback options the basin re-vote, the decimated inpainting and the
+"full" re-estimation mode.
 """
 
 from __future__ import annotations
@@ -24,12 +31,13 @@ import torch
 from rs_sfm_tpu_torch.config import PipelineConfig
 from rs_sfm_tpu_torch.geom.camera import (Intrinsics, normalize_coords,
                                           normalize_flow, pixel_grid)
+from rs_sfm_tpu_torch.parallel.distributed import psum
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 from rs_sfm_tpu_torch.solver.ransac import (RansacResult, _score_hypotheses,
                                             ransac)
-from rs_sfm_tpu_torch.solver.refine_fused import (refine_pallas,
-                                                  refine_pallas_multi)
+from rs_sfm_tpu_torch.solver.refine_fused import (
+    refine_pallas, refine_pallas_multi, refine_pallas_multi_sharded)
 
 
 class EstimationResult(NamedTuple):
@@ -51,21 +59,32 @@ class EstimationResult(NamedTuple):
     top_k: torch.Tensor
 
 
-def prepare_flow_inputs(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig):
+def prepare_flow_inputs(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
+                        *, row_offset=None, total_rows: Optional[int] = None):
     """Flatten + normalize the flow grid and compute the RS factors
     (src/main.cc:398-434; flow normalized without the γ premultiply).
+
+    Args:
+      row_offset: global row of this block's first row under scanline-block
+        sharding (the grid's y and α̃ use global rows); None = the block is
+        the whole image.
+      total_rows: the image's row count for the α/α̃ readout-time scaling
+        (default: the block's own height, right only when unsharded).
 
     Returns (coords (N,2), flow_n (N,2), alpha (N,), alpha_k (N,),
     valid (N,) bool).
     """
     h, w_cols = flow_px.shape[:2]
     grid = pixel_grid(h, w_cols, dtype=flow_px.dtype, device=flow_px.device)
+    if row_offset is not None:
+        grid[..., 1] += row_offset
+    rows = total_rows if total_rows is not None else h
     coords = normalize_coords(grid, intr).reshape(-1, 2)
     flow_n = normalize_flow(flow_px, intr).reshape(-1, 2)
     fpx = flow_px.reshape(-1, 2)
     valid = torch.sum(fpx * fpx, dim=-1) > cfg.flow_threshold
-    alpha = get_alpha(fpx[:, 1], h, gamma)
-    alpha_k = get_alpha_k(grid[..., 1].reshape(-1), fpx[:, 1], h, gamma)
+    alpha = get_alpha(fpx[:, 1], rows, gamma)
+    alpha_k = get_alpha_k(grid[..., 1].reshape(-1), fpx[:, 1], rows, gamma)
     if cfg.use_global_shutter:
         alpha = torch.ones_like(alpha)  # GS baseline (src/errorMeasure.cpp:106-111)
     return coords, flow_n, alpha, alpha_k, valid
@@ -98,7 +117,8 @@ def _check_supported(cfg: PipelineConfig) -> None:
 def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                        generator: Optional[torch.Generator] = None, *,
                        sample_indices=None, pixel_mask=None, warm_start=None,
-                       prepared=None,
+                       prepared=None, group=None, row_offset=None,
+                       total_rows: Optional[int] = None,
                        timer: Optional[Callable[[str], None]] = None,
                        ) -> EstimationResult:
     """Full estimation: flow grid → (v, w, k) + depth map.
@@ -116,6 +136,11 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         inlier set and refined as a single start (the feedback passes).
       prepared: optional `prepare_flow_inputs(flow_px, intr, gamma, cfg)`
         result, computed once by a caller that needs it again.
+      group: process group when flow_px is this rank's scanline block of a
+        sharded image (None = the whole image); RANSAC draws from the
+        shared pool of cfg.ransac_sample_pool pixels per rank.
+      row_offset, total_rows: the block's first global row and the image's
+        row count (see prepare_flow_inputs); needed with `group`.
       timer: optional callback, called with "prepare", "ransac" and
         "refine" as each stage has been issued (stage timing with CUDA
         events; nothing is synchronized here).
@@ -126,7 +151,9 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     use_k = False
     tol = cfg.ransac_tol
     if prepared is None:
-        prepared = prepare_flow_inputs(flow_px, intr, gamma, cfg)
+        prepared = prepare_flow_inputs(flow_px, intr, gamma, cfg,
+                                       row_offset=row_offset,
+                                       total_rows=total_rows)
     coords, flow_n, alpha, alpha_k, valid = prepared
     if pixel_mask is not None:
         valid = valid & pixel_mask.reshape(-1)
@@ -140,7 +167,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
             k_ws.reshape(1), tol)
         rr = RansacResult(v=v_ws, w=w_ws, k=k_ws.reshape(()),
                           inv_depth=rho_ws[0], inlier_mask=inl_ws[0],
-                          num_inliers=num_ws[0], inlier_error=err_ws[0],
+                          num_inliers=psum(num_ws[0], group),
+                          inlier_error=psum(err_ws[0], group),
                           top_v=v_ws[None], top_w=w_ws[None],
                           top_k=k_ws.reshape(1))
     else:
@@ -149,7 +177,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                     generator=generator, sample_indices=sample_indices,
                     chunk=cfg.ransac_chunk, engine=cfg.ransac_engine,
                     top_j=cfg.refine_starts if cfg.use_refinement else 1,
-                    top_j_diversity=cfg.refine_start_diversity)
+                    top_j_diversity=cfg.refine_start_diversity,
+                    group=group, sample_pool=cfg.ransac_sample_pool)
     mark("ransac")
 
     # Huber knee in normalized units.
@@ -159,6 +188,17 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     def score(vs, ws, ks):
         return _score_hypotheses(coords, flow_n, alpha, alpha_k, valid,
                                  vs, ws, ks, tol)
+
+    def refine(masks, vs, ws, ks, rhos, iters):
+        """J-start refinement: the sharded LM under `group`."""
+        kwargs = dict(optimize_k=use_k, iterations=iters,
+                      rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
+        if group is not None:
+            return refine_pallas_multi_sharded(
+                coords, flow_n, alpha, alpha_k, masks, vs, ws, ks, rhos,
+                group=group, **kwargs)
+        return refine_pallas_multi(coords, flow_n, alpha, alpha_k, masks, vs,
+                                   ws, ks, rhos, **kwargs)
 
     no_cands = torch.zeros((0, 3), dtype=coords.dtype, device=coords.device)
     inlier_mask, num_inliers = rr.inlier_mask, rr.num_inliers
@@ -172,30 +212,28 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                   if 0 < cfg.refine_winnow_iters < cfg.refine_iterations
                   else 0)
 
-        def refine_multi(masks, vs, ws, ks, rhos, iters):
-            return refine_pallas_multi(
-                coords, flow_n, alpha, alpha_k, masks, vs, ws, ks, rhos,
-                optimize_k=use_k, iterations=iters,
-                rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
-
         def rescore(ref):
             num_r, err_r, rho_r, inl_r = score(ref.v, ref.w, ref.k)
+            if group is not None:
+                # ONE all-reduce of the stacked vote table.
+                votes = psum(torch.stack([num_r.to(err_r.dtype), err_r],
+                                         dim=-1), group)
+                num_r, err_r = votes[:, 0], votes[:, 1]
             num_g = num_r.to(err_r.dtype)
             err_g = torch.where(torch.isfinite(err_r), err_r, torch.inf)
             err_masked = torch.where(num_g == torch.max(num_g), err_g,
                                      torch.inf)
             return torch.argmin(err_masked), num_g, rho_r, inl_r
 
-        ref = refine_multi(inl_j, rr.top_v, rr.top_w, rr.top_k, rho_j,
-                           winnow if winnow else cfg.refine_iterations)
+        ref = refine(inl_j, rr.top_v, rr.top_w, rr.top_k, rho_j,
+                     winnow if winnow else cfg.refine_iterations)
         best_j, num_g, rho_r, inl_r = rescore(ref)
         cand_v, cand_w, cand_k = ref.v, ref.w, ref.k
         if winnow:
             # Finish the winner alone from its winnow-phase state.
-            ref = refine_multi(inl_r[best_j][None], ref.v[best_j][None],
-                               ref.w[best_j][None], ref.k[best_j][None],
-                               rho_r[best_j][None],
-                               cfg.refine_iterations - winnow)
+            ref = refine(inl_r[best_j][None], ref.v[best_j][None],
+                         ref.w[best_j][None], ref.k[best_j][None],
+                         rho_r[best_j][None], cfg.refine_iterations - winnow)
             best_j, num_g, rho_r, inl_r = rescore(ref)
         v, w, k = ref.v[best_j], ref.w[best_j], ref.k[best_j]
         rho = rho_r[best_j]
@@ -203,11 +241,19 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         inlier_mask = inl_r[best_j]
         num_inliers = num_g[best_j].to(torch.int32)
     elif cfg.use_refinement:
-        ref = refine_pallas(coords, flow_n, alpha, alpha_k, rr.inlier_mask,
-                            rr.v, rr.w, rr.k, rr.inv_depth,
-                            optimize_k=use_k,
-                            iterations=cfg.refine_iterations,
-                            rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
+        if group is not None:
+            ref = refine(rr.inlier_mask[None], rr.v[None], rr.w[None],
+                         rr.k.reshape(1), rr.inv_depth[None],
+                         cfg.refine_iterations)
+            ref = ref._replace(v=ref.v[0], w=ref.w[0], k=ref.k[0],
+                               cost=ref.cost[0])
+        else:
+            ref = refine_pallas(coords, flow_n, alpha, alpha_k,
+                                rr.inlier_mask, rr.v, rr.w, rr.k,
+                                rr.inv_depth, optimize_k=use_k,
+                                iterations=cfg.refine_iterations,
+                                rel_tol=cfg.refine_rel_tol,
+                                loss_delta=loss_delta)
         v, w, k = ref.v, ref.w, ref.k
         refine_cost = ref.cost
         cand_v = cand_w = no_cands
@@ -216,7 +262,7 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         # inlier set (the multi-start export semantics).
         num_1, _, rho_1, inl_1 = score(v[None], w[None], k[None])
         rho = rho_1[0]
-        inlier_mask, num_inliers = inl_1[0], num_1[0]
+        inlier_mask, num_inliers = inl_1[0], psum(num_1[0], group)
     else:
         v, w, k, rho = rr.v, rr.w, rr.k, rr.inv_depth
         refine_cost = torch.zeros((), dtype=coords.dtype,
@@ -230,7 +276,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     safe_rho = torch.where(rho == 0.0, torch.ones_like(rho), rho)
     z = torch.where(rho == 0.0, torch.zeros_like(rho), 1.0 / safe_rho)
     m = inlier_mask.to(z.dtype)
-    z_mean = torch.sum(z * m) / torch.clamp(torch.sum(m), min=1.0)
+    z_mean = (psum(torch.sum(z * m), group)
+              / torch.clamp(psum(torch.sum(m), group), min=1.0))
     sign = torch.where(z_mean < 0.0, -1.0, 1.0).to(z.dtype)
     v = v * sign
     z = z * sign

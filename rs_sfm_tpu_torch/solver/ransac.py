@@ -11,9 +11,13 @@ top-J.
 
 Sampling draws from a `torch.Generator`.  Its stream differs from
 jax.random's, so `sample_indices=` injects precomputed draws (the tests
-hand both packages the JAX package's `sample_valid_indices`).  The sharded
-variant (`axis_name`), the two-stage prescore and the all-k path are not
-ported yet.
+hand both packages the JAX package's `sample_valid_indices`).
+
+Under scanline-block sharding (`group`), hypotheses are drawn from a pool
+of pixels shared by all ranks (`shared_sample_pool`), each rank scores them
+on its own pixels, and the (T, 2) vote table is summed over the group in
+one all-reduce.  The two-stage prescore and the all-k path are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 from rs_sfm_tpu_torch.config import CORE_DTYPE
 from rs_sfm_tpu_torch.ops.kernels.score import (pack_hyps, pack_pixels,
                                                 score_hypotheses)
+from rs_sfm_tpu_torch.parallel.distributed import (axis_index, axis_size,
+                                                   broadcast, psum)
 from rs_sfm_tpu_torch.solver.depth import estimate_inverse_depth
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 from rs_sfm_tpu_torch.solver.minimal import calculate_velocities
@@ -45,6 +51,32 @@ class RansacResult(NamedTuple):
     top_v: torch.Tensor = None  # (J, 3) multi-start inputs
     top_w: torch.Tensor = None  # (J, 3)
     top_k: torch.Tensor = None  # (J,)
+
+
+def shared_sample_pool(coords, flow, alpha, alpha_k, valid, pool: int,
+                       group):
+    """The sample pool shared by the ranks of `group` (ransac.py:37-60).
+
+    Each rank takes `pool` pixels of its block at a fixed stride and writes
+    them to its slot of a zero array of S * pool rows; one all-reduce gives
+    every rank the union.  Returns (coords (S*pool, 2), flow (S*pool, 2),
+    alpha, alpha_k (S*pool,), valid (S*pool,) bool).
+    """
+    n = coords.shape[0]
+    stride = max(n // pool, 1)
+    idx = (torch.arange(pool, device=coords.device) * stride) % n
+    slot = axis_index(group) * pool
+    dt = coords.dtype
+    local = torch.cat([coords[idx], flow[idx].to(dt), alpha[idx, None].to(dt),
+                       alpha_k[idx, None].to(dt), valid[idx, None].to(dt)],
+                      dim=1)
+    full = torch.zeros((axis_size(group) * pool, 7), dtype=dt,
+                       device=coords.device)
+    full[slot:slot + pool] = local
+    full = psum(full, group)
+    return (full[:, 0:2], full[:, 2:4].to(flow.dtype),
+            full[:, 4].to(alpha.dtype), full[:, 5].to(alpha_k.dtype),
+            full[:, 6] > 0)
 
 
 def sample_valid_indices(generator, valid_mask, trials: int, count: int = 9):
@@ -112,7 +144,8 @@ def _diverse_top_j(score, v_all, top_j: int, diversity: float):
 def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
            trials: int, tolerance: float, generator=None,
            sample_indices=None, chunk: int = 64, engine: str = "xla",
-           top_j: int = 1, top_j_diversity: float = 0.3) -> RansacResult:
+           top_j: int = 1, top_j_diversity: float = 0.3, group=None,
+           sample_pool: int = 1024) -> RansacResult:
     """Batched RANSAC (reference minimal::ransac, src/minimal.cc:209-306).
 
     Args:
@@ -126,6 +159,13 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
       chunk: hypotheses per pass of the "xla" engine.
       engine: "pallas" = the scoring kernel; "xla" = plain tensor ops.
       top_j, top_j_diversity: multi-start outputs (RansacResult.top_*).
+      group: process group when the pixels are this rank's scanline block
+        of a sharded image (None = the whole image).  The draws then index
+        `shared_sample_pool` (`sample_pool` pixels per rank; injected
+        `sample_indices` index that pool too, and the generator's draws are
+        broadcast from the group's first rank), votes are summed over the
+        group, and every scalar output is the same on all ranks;
+        inv_depth and inlier_mask stay local.
 
     The minimal solver runs in CORE_DTYPE (float64).
     """
@@ -134,18 +174,23 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
             "RANSAC with the acceleration model (all-k scoring) is not "
             "ported yet")
     n = coords.shape[0]
+    pc, pf, pa, pak, pv = coords, flow, alpha, alpha_k, valid_mask
+    if group is not None:
+        pc, pf, pa, pak, pv = shared_sample_pool(
+            coords, flow, alpha, alpha_k, valid_mask, min(sample_pool, n),
+            group)
     if sample_indices is None:
-        idx = sample_valid_indices(generator, valid_mask, trials)
+        idx = broadcast(sample_valid_indices(generator, pv, trials), group)
     else:
         idx = torch.as_tensor(np.array(sample_indices), dtype=torch.int64)
         idx = idx.to(coords.device)
         if idx.shape != (trials, 9):
             raise ValueError(f"sample_indices must be ({trials}, 9), got "
                              f"{tuple(idx.shape)}")
-    q = coords[idx].to(CORE_DTYPE)
-    u = flow[idx].to(CORE_DTYPE)
-    a9 = alpha[idx].to(CORE_DTYPE)
-    ak9 = alpha_k[idx].to(CORE_DTYPE)
+    q = pc[idx].to(CORE_DTYPE)
+    u = pf[idx].to(CORE_DTYPE)
+    a9 = pa[idx].to(CORE_DTYPE)
+    ak9 = pak[idx].to(CORE_DTYPE)
     w_all, v_all, k_all = calculate_velocities(q, u, a9, ak9, False)
 
     if engine == "pallas":
@@ -163,11 +208,20 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
         ierrs = torch.cat([p[1] for p in parts])
     else:
         raise ValueError(f"unknown RANSAC engine {engine!r}")
+    n_total = n
+    if group is not None:
+        # ONE all-reduce of the stacked (T, 2) vote table; counts travel as
+        # floats, exact below 2^24.
+        votes = psum(torch.stack([nums.to(ierrs.dtype), ierrs], dim=-1),
+                     group)
+        nums = votes[:, 0].to(torch.int32)
+        ierrs = votes[:, 1]
+        n_total = n * axis_size(group)
 
     # Exact two-stage lexicographic best: max count, then min error among
     # the count winners; ties keep the earliest trial.  The composite score
     # is only used where a full ordering is needed (the top-J scan).
-    big = torch.tensor(n * tolerance + 1.0, dtype=ierrs.dtype,
+    big = torch.tensor(n_total * tolerance + 1.0, dtype=ierrs.dtype,
                        device=ierrs.device)
     finite = torch.isfinite(ierrs)
     score = nums.to(ierrs.dtype) * big - torch.where(finite, ierrs, big)
@@ -179,6 +233,11 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
     num_b, ierr_b, rho_b, inlier_b = _score_hypotheses(
         coords, flow, alpha, alpha_k, valid_mask, v_b[None], w_b[None],
         k_b[None], tolerance)
+    if group is not None:
+        bvote = psum(torch.stack([num_b.to(ierr_b.dtype), ierr_b], dim=-1),
+                     group)
+        num_b = bvote[:, 0].to(torch.int32)
+        ierr_b = bvote[:, 1]
 
     if top_j > 1:
         if top_j_diversity > 0.0:

@@ -1,4 +1,4 @@
-"""CUDA kernels B1-B6 against their plain PyTorch versions on the card.
+"""CUDA kernels B1-B8 against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips elsewhere.  The file imports neither JAX nor the JAX package, so it
@@ -15,7 +15,11 @@ csrc/score.cu), error sums rtol 1e-5 (summation order).  B2/B3 state rtol
 Cauchy-Schwarz bound (tests/test_torch_refine.py explains both), compared
 at unit damping.  B4 warp, B5 SOR and B6 median are bit-exact: each kernel
 runs its plain version's IEEE operations in the same order (B4 and B5 built
-without FMA contraction), and the median uses only min and max.
+without FMA contraction), and the median uses only min and max.  B7 (the
+split LM iteration) is held to its plain versions with B3's tolerances, and
+to B3 itself bit for bit: both run the same sweep, reduction and decide
+code.  B8 (the z-buffer splat) is bit-exact: integer keys and a colour
+copy.
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from rs_sfm_tpu_torch.ops.kernels import refine_kernels as trk
 from rs_sfm_tpu_torch.ops.kernels import score as tscore
 from rs_sfm_tpu_torch.ops.kernels import sor as tsor
 from rs_sfm_tpu_torch.ops.kernels import warp as twarp
+from rs_sfm_tpu_torch.ops.kernels import zbuffer as tzbuffer
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
@@ -154,6 +159,65 @@ def test_lm_kernel_is_deterministic(cuda_device):
     b = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", [1, 4])
+def test_lm_split_kernels_match_plain_and_fused(cuda_device, j):
+    """B7: the sums kernel and the decide kernel against their plain
+    versions, and sums -> decide against B3's fused launch, bit for bit,
+    over a bootstrap sweep and one full step."""
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j)]
+    rcd = rpd
+    for _ in range(2):
+        st = st.clone()
+        st[:, trk.S_LAM] = 3.0  # unit damping, as test_lm_kernels_match_plain
+        before = (trk.lm_sums_multi.launches, trk.lm_decide.launches)
+        rho_eff, rho_new, sums = trk.lm_sums_multi(st, pxd, md, rpd, rcd,
+                                                   loss_delta=HUBER)
+        new = trk.lm_decide(st, sums)
+        assert (trk.lm_sums_multi.launches, trk.lm_decide.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref_e, ref_n, ref_s = trk.lm_sums_multi_plain(st, pxd, md, rpd, rcd,
+                                                      loss_delta=HUBER)
+        ref_new = trk.lm_decide_plain(st, sums)
+        fused = trk.lm_iter_multi(st, pxd, md, rpd, rcd, loss_delta=HUBER)
+        torch.cuda.synchronize()
+        bad = trk.sums_mismatches(sums.cpu().numpy(), ref_s.cpu().numpy())
+        assert not bad, bad[:10]
+        for g, r in ((rho_eff, ref_e), (rho_new, ref_n), (new, ref_new)):
+            bad = trk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
+            assert not bad, bad[:10]
+        for g, r in zip((new, rho_eff, rho_new), fused):
+            assert torch.equal(g, r)
+        st, rpd, rcd = fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(17, 30), (135, 240)])
+def test_zbuffer_kernel_matches_plain(cuda_device, h, w):
+    """B8 against the plain scatter engine, with forced ties: targets on a
+    coarse grid, so about 12 sources share each, on four depth levels that
+    include -0.0 and +0.0; a few sources are not finite or off the image."""
+    rng = np.random.default_rng(11)
+    tx = (rng.integers(0, max(w // 4, 1), (h, w)) * 4.0 + 0.49).astype(
+        np.float32)
+    ty = (rng.integers(0, max(h // 3, 1), (h, w)) * 3.0 - 0.5).astype(
+        np.float32)
+    d = rng.choice(np.float32([-1.0, -0.0, 0.0, 2.0]), size=(h, w))
+    d[rng.uniform(size=(h, w)) < 0.02] = np.inf
+    tx[rng.uniform(size=(h, w)) < 0.02] = np.nan
+    ty[rng.uniform(size=(h, w)) < 0.02] = -0.51
+    colors = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (tx, ty, d, colors)]
+    before = tzbuffer.zbuffer_splat.launches
+    gs, hit = tzbuffer.zbuffer_splat(*args)
+    torch.cuda.synchronize()
+    assert tzbuffer.zbuffer_splat.launches == before + 1
+    gs_p, hit_p = tzbuffer.zbuffer_splat_plain(*args)
+    assert torch.equal(hit, hit_p)
+    assert torch.equal(gs, gs_p)
+    assert 0 < int(hit.sum()) < h * w
 
 
 # Pyramid shapes of the main path: odd rows and columns, the smallest
