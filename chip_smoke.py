@@ -17,19 +17,22 @@ and the script exits non-zero; nothing is caught and continued):
   [1 device]  the card's name, then nvidia-smi's "name, power.limit" line
   [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds and
               ptxas usage
-  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi, B7 lm_sums_multi +
-              lm_decide, B4 warp, B5 sor_sweeps, B6 median3_planes vs
-              their plain versions at full-HD shapes (B7 also against B3,
-              bit for bit); median ms of 20 timed runs of each, of its
-              plain version and (B4) of F.grid_sample, and its bound
+  [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi (J = 4 and 1), B7
+              lm_sums_multi + lm_decide, B4 warp, B5 sor_sweeps, B6
+              median3_planes vs their plain versions at full-HD shapes (B7
+              also against B3, bit for bit); median ms of 20 timed runs of
+              each, of its plain version and (B4) of F.grid_sample, and its
+              bound; B5's tile plans at every pyramid level ("*" marks
+              sor.tile_plan's choice; launches in parentheses)
   [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
               per-stage ms (CUDA events), peak memory, launch counts
   [5 parity]  the solver slice and the e2e path at 270x480 on the card
               (kernels) vs on the CPU (plain versions), same RANSAC draws
   [6 e2e]     the main path at full HD: 1 warm-up and 3 timed passes,
               per-stage ms, host wall time, peak memory, launch counts of
-              all six kernels asserted against the configuration's; then
-              one pass under torch.profiler (device kernels, busy share)
+              all six kernels asserted against the configuration's (B5 at
+              most 330 a pass); then one pass under torch.profiler (device
+              kernels, busy share, device ms of B1-B6's kernels)
   [7 sharded] the estimation at full HD sharded over 2 ranks that share the
               one card over gloo (NCCL refuses two ranks on one device):
               both ranks' scalars bit-identical, and within gates of the
@@ -94,6 +97,9 @@ KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "lm_sums_multi": ("lm_iter", "refine_kernels.py:592"),
     "zbuffer_splat": ("zbuffer", "zbuffer.py:142"),
 }
+# SOR launches of one e2e pass: 66 calls of 20 sweeps, at most
+# ceil(20 / 4) launches each (csrc/sor.cu fuses 4 or more sweeps a launch).
+SOR_LAUNCHES_PER_PASS = 330
 # Wrappers whose kernels the e2e main path does not run (B7's decide half
 # counts beside its sums half).
 OFF_MAIN_PATH = {"lm_sums_multi": 0, "lm_decide": 0, "zbuffer_splat": 0}
@@ -166,6 +172,15 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def lm_bytes(n, j):
+    """Bytes one LM iteration over n pixels and j starts must move: the
+    6-row pixel record (x, y, ux, uy, alpha, alpha_k) once for all starts;
+    per start its mask (B2: row 6 of the record), the one depth row its
+    accept flag selects (rho_cand or rho_prev), (rho_eff, rho_new) written,
+    and its 128-float state read and written."""
+    return 4 * (6 * n + j * (4 * n + 2 * 128))
+
+
 def record(err, ms, plain_ms, nbytes, ops, library_ms=None):
     bound_ms, bound_by = bound(nbytes, ops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -197,9 +212,11 @@ def reset_counts():
     return wrap
 
 
-def _dense_launches(cfg, h, w):
-    """(warp, SOR, median) kernel launches of one dense_flow_aux call."""
+def _dense_launches(cfg, h, w, limits):
+    """(warp, SOR, median) kernel launches of one dense_flow_aux call on a
+    card of `limits` (sor.card_limits)."""
     from rs_sfm_tpu_torch.flow.dense import _chunks, pyramid_levels
+    from rs_sfm_tpu_torch.ops.kernels.sor import launches_per_call
 
     shapes = [(h, w)]
     for _ in range(pyramid_levels(h, w, cfg.levels) - 1):
@@ -224,19 +241,24 @@ def _dense_launches(cfg, h, w):
         iters = (cfg.iters if finest or cfg.iters_coarse <= 0
                  else cfg.iters_coarse)
         warp += warps
-        sor += 2 * iters * warps  # one launch per colour of each sweep
+        sor += warps * launches_per_call(hh, ww, iters, limits)
         med += warps if cfg.median else 0
     return warp, sor, med
 
 
-def flow_launches(cfg, h, w):
-    """Kernel launches of flow_forward_backward at (h, w) on CUDA tensors,
-    derived from the configuration."""
+def flow_launches(cfg, h, w, limits=None):
+    """Kernel launches of flow_forward_backward at (h, w) on CUDA tensors
+    of a card of `limits` (sor.card_limits; by default an H100's), derived
+    from the configuration."""
+    from rs_sfm_tpu_torch.ops.kernels.sor import H100_LIMITS
+
+    limits = limits or H100_LIMITS
     bh, bw = h, w
     for _ in range(cfg.backward_scale.bit_length() - 1):
         bh, bw = (bh + 1) // 2, (bw + 1) // 2
-    fw = _dense_launches(cfg, h, w)
-    bwd = _dense_launches(cfg, bh, bw) if cfg.backward_scale > 1 else fw
+    fw = _dense_launches(cfg, h, w, limits)
+    bwd = (_dense_launches(cfg, bh, bw, limits) if cfg.backward_scale > 1
+           else fw)
     return {"warp": fw[0] + bwd[0] + 1 + (cfg.occ_photo > 0.0),
             "sor_sweeps": fw[1] + bwd[1],
             "median3_planes": fw[2] + bwd[2]}
@@ -437,11 +459,7 @@ def phase_kernels(dev):
         err = float(np.max(np.abs(theta_k - theta_p)))
         ms = time_ms(lambda: kernel(state, rho, rho))
         plain_ms = time_ms(lambda: plain(state, rho, rho))
-        # Read: the pixel record, (rho_prev, rho_cand) and the J masks of
-        # lm_iter_multi; written: (rho_eff, rho_new) and the states.
-        nbytes = 4 * (8 * n + 2 * j * n + (j * n if j > 1 else 0)
-                      + 2 * j * n + 2 * 128 * j)
-        out[name] = record(err, ms, plain_ms, nbytes, OPS_LM * n * j)
+        out[name] = record(err, ms, plain_ms, lm_bytes(n, j), OPS_LM * n * j)
         print(f"[3 kernels] {'B2' if j == 1 else 'B3'} {name} J={j} N={n} "
               f"Huber delta={loss_delta:.4g}: one step matches plain (state "
               f"rtol 1e-5; largest diff at slot {worst}); 21 sweeps v, w, "
@@ -453,6 +471,27 @@ def phase_kernels(dev):
                             w_all[top[:j]], k_all[top[:j]], rho)
         if j == 4:  # the production winnow's J
             out["lm_sums_multi"] = b7
+
+    # B3 at J = 1, as the production finish runs it on the winner: one step
+    # against its plain version (unit damping), and its time.
+    masks = inl_j[:1].to(f32).contiguous()
+    rho = rho_j[:1].to(f32).contiguous()
+    st = rf.initial_state(v_all[top[:1]], w_all[top[:1]], k_all[top[:1]],
+                          optimize_k=False, init_lambda=1e-6, rel_tol=0.0)
+    st[:, rk.S_LAM] = 3.0
+    got = rk.lm_iter_multi(st, pxl, masks, rho, rho, loss_delta)
+    ref = rk.lm_iter_multi_plain(st, pxl, masks, rho, rho, loss_delta)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        bad = rk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
+        check(not bad, f"lm_iter_multi J=1 one step vs plain: {bad[:5]}")
+    rec = out["lm_iter_multi"]
+    rec["ms_j1"] = time_ms(lambda: rk.lm_iter_multi(st, pxl, masks, rho, rho,
+                                                    loss_delta))
+    rec["bound_ms_j1"] = bound(lm_bytes(n, 1), OPS_LM * n)[0]
+    print(f"[3 kernels] B3 lm_iter_multi J=1 N={n}: one step matches plain; "
+          f"{rec['ms_j1']:.3f} ms/iteration, bound "
+          f"{rec['bound_ms_j1']:.4f} ms", flush=True)
     return out
 
 
@@ -506,10 +545,9 @@ def check_split_lm(state, pxl, masks, rho_prev, rho_cand, loss_delta,
             st, pxl, masks, rho_prev, rho_cand, loss_delta)[2])
 
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    # Read: the pixel record, the J masks and (rho_prev, rho_cand); written:
-    # (rho_eff, rho_new), the sums and the states.
-    nbytes = 4 * (8 * n + 3 * j * n + 2 * j * n + j * rk.N_SUMS + 2 * 128 * j)
-    rec = record(err, ms, plain_ms, nbytes, OPS_LM * n * j)
+    # The fused iteration's bytes and the (J, 71) sums between the halves.
+    rec = record(err, ms, plain_ms, lm_bytes(n, j) + 4 * j * rk.N_SUMS,
+                 OPS_LM * n * j)
     print(f"[3 kernels] B7 lm_sums_multi + lm_decide J={j} N={n}: sums, rho "
           f"and decide match plain (B3's tolerances), sums -> decide and a "
           f"20-iteration world-1 refinement bit-identical to B3; theta max "
@@ -536,13 +574,63 @@ def e2e_inputs(dev, h=H, w=W):
     return [t.to(dev) for t in (image, i1, i2, flow)]
 
 
+def sor_inputs(i1, i2):
+    """B5's input at full HD: the finest level's coefficient planes,
+    linearised around the forward flow the e2e preset finds for the pair
+    (that call's launches are not counted: the counts are reset before
+    phase 6), that flow as (u, v), and the preset's SOR parameters."""
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET as fc
+    from rs_sfm_tpu_torch.flow.dense import dense_flow, linearize
+    from rs_sfm_tpu_torch.ops.kernels.warp import warp_plain
+
+    f0 = dense_flow(i1, i2, fc)
+    coef = linearize(i1, warp_plain(i2, f0), f0).contiguous()
+    prm = dict(iters=fc.iters, omega=fc.omega, lam=fc.smoothness,
+               eps2=fc.eps * fc.eps, wbr=fc.brightness_weight,
+               wgrad=fc.gamma_grad)
+    return coef, f0[..., 0].contiguous(), f0[..., 1].contiguous(), prm
+
+
+def check_sor_plans(coef, u0, v0, prm):
+    """B5's tile plans at each level of the e2e pyramid, on the full-HD
+    planes subsampled to the level's shape: the plan tile_plan picks, the
+    other tile, and the whole plane in one block where it fits, each
+    bit-exact to plain, with its ms for the preset's sweeps."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import sor as ks
+
+    limits = ks.card_limits(u0.device)
+    k = ks.SWEEPS_PER_LAUNCH
+    for step in (1, 2, 4, 8, 16, 32, 64):
+        c = coef[:, ::step, ::step].contiguous()
+        u, v = u0[::step, ::step].contiguous(), v0[::step, ::step].contiguous()
+        h, w = u.shape
+        up, vp = ks.sor_sweeps_plain(c, u, v, **prm)
+        chosen = ks.tile_plan(h, w, prm["iters"], limits)
+        plans = {chosen} | {(*t, 2 * k, k) for t in (ks.TILE, ks.TILE_SMALL)}
+        if ks.smem_bytes(h, w, h, w, 0) <= limits[1]:
+            plans.add((h, w, 0, prm["iters"]))
+        timings = []
+        for plan in sorted(plans):
+            uk, vk = torch.empty_like(u), torch.empty_like(v)
+            launches = ks.sor_launch(c, u, v, uk, vk, plan, **prm)
+            torch.cuda.synchronize()
+            check(torch.equal(uk, up) and torch.equal(vk, vp),
+                  f"B5 {h}x{w} plan {plan} bit-exact to plain")
+            ms = time_ms(lambda: ks.sor_launch(c, u, v, uk, vk, plan, **prm))
+            timings.append(f"{plan[0]}x{plan[1]} K={plan[3]}"
+                           + ("*" if plan == chosen else "")
+                           + f" {ms:.4f} ms ({launches})")
+        print(f"[3 kernels] B5 plans {h}x{w}, bit-exact to plain: "
+              + ", ".join(timings), flush=True)
+
+
 def phase_flow_kernels(dev):
     """B4-B6 at full-HD shapes of the e2e path; returns {kernel: record}."""
     import torch
     import torch.nn.functional as F
 
-    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET
-    from rs_sfm_tpu_torch.flow.dense import dense_flow, linearize
     from rs_sfm_tpu_torch.ops.kernels import median as km
     from rs_sfm_tpu_torch.ops.kernels import sor as ks
     from rs_sfm_tpu_torch.ops.kernels import warp as kw
@@ -597,18 +685,8 @@ def phase_flow_kernels(dev):
           f" {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, bound "
           f"{r['bound_ms']:.4f} ms", flush=True)
 
-    # B5: 20 sweeps on the finest level's coefficient planes, linearised
-    # around the forward flow the e2e preset finds for this pair (that
-    # call's launches are not counted: the counts are reset before phase 6);
-    # bit-exact.
-    f0 = dense_flow(i1, i2, E2E_FLOW_PRESET)
-    coef = linearize(i1, kw.warp_plain(i2, f0), f0).contiguous()
-    u0 = f0[..., 0].contiguous()
-    v0 = f0[..., 1].contiguous()
-    fc = E2E_FLOW_PRESET
-    prm = dict(iters=fc.iters, omega=fc.omega, lam=fc.smoothness,
-               eps2=fc.eps * fc.eps, wbr=fc.brightness_weight,
-               wgrad=fc.gamma_grad)
+    # B5: 20 sweeps on the finest level's coefficient planes; bit-exact.
+    coef, u0, v0, prm = sor_inputs(i1, i2)
     uk, vk = ks.sor_sweeps(coef, u0, v0, **prm)
     up, vp = ks.sor_sweeps_plain(coef, u0, v0, **prm)
     torch.cuda.synchronize()
@@ -623,10 +701,11 @@ def phase_flow_kernels(dev):
         time_ms(lambda: ks.sor_sweeps_plain(coef, u0, v0, **prm)),
         4 * (8 + 2 + 2) * n, OPS_SOR * n * prm["iters"])
     r = out["sor_sweeps"]
-    print(f"[3 kernels] B5 sor_sweeps {H}x{W}, {fc.iters} sweeps: "
+    print(f"[3 kernels] B5 sor_sweeps {H}x{W}, {prm['iters']} sweeps: "
           f"bit-exact to plain (max |du| {moved:.3e} px); {r['ms']:.3f} ms "
           f"vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms",
           flush=True)
+    check_sor_plans(coef, u0, v0, prm)
     return out
 
 
@@ -817,10 +896,21 @@ def phase_parity(dev):
           f"e2e {w}x{h}: v diff {dv}, w diff {dw} within gates")
 
 
+# Device kernels of B1-B6 by name (csrc/*.cu), for their ms per e2e pass.
+PASS_SYMBOLS = {"score_hypotheses": ("score_kernel",),
+                "lm_iter": ("lm_iter_sweep", "lm_iter_reduce"),
+                "lm_iter_multi": ("lm_iter_multi_sweep",
+                                  "lm_iter_multi_reduce"),
+                "warp": ("warp_kernel",), "sor_sweeps": ("sor_tile_kernel",),
+                "median3_planes": ("median3_kernel",)}
+
+
 def profile_pass(fn):
     """(device kernels, ms the device was busy, ms the pass took, the six
-    operators called most often as (name, calls)) of one fn() under
-    torch.profiler."""
+    operators called most often as (name, calls), {B1-B6 name: device ms
+    of its kernels}) of one fn() under torch.profiler."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -835,7 +925,12 @@ def profile_pass(fn):
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     ops = sorted(((a.key, a.count) for a in prof.key_averages()
                   if a.key.startswith("aten::")), key=lambda kc: -kc[1])
-    return len(kernels), busy_ms, wall_ms, ops[:6]
+    by_kernel = {}
+    for kname, symbols in PASS_SYMBOLS.items():
+        pattern = re.compile(r"(?<!\w)(" + "|".join(symbols) + r")(?!\w)")
+        by_kernel[kname] = sum(e.time_range.elapsed_us() for e in kernels
+                               if pattern.search(e.name)) / 1e3
+    return len(kernels), busy_ms, wall_ms, ops[:6], by_kernel
 
 
 def run_e2e(i1, i2, image, intr, generator):
@@ -877,6 +972,7 @@ def phase_e2e(dev):
     import torch
 
     from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.ops.kernels.sor import card_limits
 
     image, i1, i2, flow = e2e_inputs(dev)
     _, intr = slice_inputs(dev)
@@ -900,7 +996,8 @@ def phase_e2e(dev):
         stages.append(st)
     counts = {k: fn.launches for k, fn in wrap.items()}
     expect = {**estimation_launches(E2E_CONFIG),
-              **flow_launches(E2E_FLOW_PRESET, H, W), **OFF_MAIN_PATH}
+              **flow_launches(E2E_FLOW_PRESET, H, W, card_limits(dev)),
+              **OFF_MAIN_PATH}
     expect = {k: runs * c for k, c in expect.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
@@ -916,6 +1013,9 @@ def phase_e2e(dev):
           f"{statistics.median(walls):.2f} (warm-up {warm_s:.1f} s); peak "
           f"{peak:.2f} GiB; launches {counts}", flush=True)
     check(counts == expect, f"e2e launches {counts} == {expect}")
+    check(counts["sor_sweeps"] <= runs * SOR_LAUNCHES_PER_PASS,
+          f"e2e: {counts['sor_sweeps'] / runs} SOR launches per pass <= "
+          f"{SOR_LAUNCHES_PER_PASS}")
     for field in ("v", "w", "k", "depth_map", "refine_cost"):
         check(bool(torch.isfinite(getattr(res, field)).all()),
               f"e2e: {field} finite")
@@ -927,13 +1027,17 @@ def phase_e2e(dev):
     check(int(res.num_inliers) > 0.25 * n, "e2e: inliers > 0.25 N")
     # One more pass traced (after the counts were read): the device's busy
     # share, with the profiler's own host overhead in the traced time.
-    n_kernels, busy, wall, top = profile_pass(
+    n_kernels, busy, wall, top, pass_ms = profile_pass(
         lambda: run_e2e(i1, i2, image, intr, gen))
     print(f"[6 e2e] torch.profiler over one pass: {n_kernels} device "
           f"kernels, busy {busy:.2f} ms of {wall:.2f} ms traced "
           f"({100 * busy / wall:.1f} %); most called operators: "
           + ", ".join(f"{name} {calls}" for name, calls in top), flush=True)
-    return counts, (image, res, intr)
+    print("[6 e2e] device ms per pass by kernel: "
+          + " ".join(f"{k}={v:.3f}" for k, v in pass_ms.items()), flush=True)
+    for kname, ms in pass_ms.items():
+        check(ms > 0.0, f"{kname}: device time in the profiled pass")
+    return counts, pass_ms, (image, res, intr)
 
 
 def sharded_rank(rank, world, flow_np, intr, draws, device):
@@ -1136,7 +1240,7 @@ def main():
     records.update(phase_flow_kernels(dev))
     phase_slice(dev)
     phase_parity(dev)
-    launches, e2e = phase_e2e(dev)
+    launches, pass_ms, e2e = phase_e2e(dev)
     launches["lm_sums_multi"] = phase_sharded(dev)["lm_sums_multi"]
     rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e)
     launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
@@ -1152,7 +1256,8 @@ def main():
             "name": kname, "route": "cuda",
             "source": str(_build.source_path(src).relative_to(ROOT)),
             "replaces": "rs_sfm_tpu/ops/pallas/" + replaces,
-            "launches": launches[kname], **records[kname]})
+            "launches": launches[kname], **records[kname],
+            "pass_ms": pass_ms.get(kname)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

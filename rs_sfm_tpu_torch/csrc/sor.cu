@@ -14,21 +14,34 @@
 //   neighbour is the pixel itself), solved by Cramer's rule, and
 //   u += omega (u_new - u).
 // The colour of (y, x) is (y + x) mod 2 on the whole grid; colour 0 is
-// updated first.  Every pixel of one colour reads only pixels of the
-// other, so one launch per colour updates (u, v) in place with exactly the
-// semantics of the JAX package's sweep loop.
+// updated first in every sweep.
 //
 // What bounds it on this card: float32 operations.  A sweep does about 92
-// operations per pixel (two square roots and two divisions among them)
+// operations per pixel (two square roots and four divisions among them)
 // against 48 bytes that must move over a whole call (8 planes and (u, v)
-// read, (u, v) written); at 20 sweeps that is about 1.9 k operations per
-// 48 bytes, above the card's ridge point.  Re-reading the planes on every
-// launch (40 bytes per updated pixel) is what this simple design adds.
+// read, (u, v) written); at 20 sweeps that is above the card's ridge point.
 //
-// What the design does about it: one thread per pixel of the colour, the
-// threads of a warp on every second pixel of one row; all arithmetic in
-// registers; 2 * iters launches queued by one host call.  Fusing sweeps
-// in shared memory (the TPU kernel's halo blocks) is later work.
+// What the design does about it: each launch runs up to K sweeps (2K colour
+// passes) on tiles held in shared memory, so the planes cross HBM once per
+// K sweeps instead of once per colour pass.  A block copies its tile plus
+// a halo of 2K pixels on every side (clipped at the image edges) with
+// cp.async, updates it in place with a __syncthreads() between colour
+// passes, and writes back only the interior.  The cells a pass must get
+// right shrink by one pixel per pass towards the interior (the red-black
+// dependency cone), so pass p of 2s updates only the cells within 2s-1-p
+// of the interior; a cell at the halo's outer ring is read but never
+// updated, and a read beyond the copied region (only ever from that ring or
+// at the true image edge) takes the cell itself: Neumann at the image edge.
+// Launches read one (u, v) buffer and write another, since a block's halo
+// is its neighbours' interior.  A plane whose whole copy fits in one
+// block's shared memory runs all its sweeps in one launch with no halo.
+// The tile plan (tile size, K, halo) comes from the wrapper
+// (ops/kernels/sor.py::tile_plan).
+//
+// Shared-memory layout: each of the 10 planes (8 coefficients, u, v) is
+// split by colour, [colour][row][x / 2], so the threads of a warp touch
+// consecutive words for the cell itself and for all four neighbours (which
+// are of the other colour): no bank conflicts.
 //
 // Numerics: compiled with -fmad=false, with IEEE sqrtf and '/', and in the
 // operation order of the plain PyTorch version (ops/kernels/sor.py::
@@ -40,34 +53,47 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int MAX_THREADS = 1024;
+constexpr int NPLANES = 10;  // ix, iy, c, ixx, ixy, iyy, cgx, cgy, u, v
 
 struct SorParams {
   float omega, lam, eps2, wbr, wgrad;
 };
 
-__global__ void __launch_bounds__(THREADS)
-sor_color_kernel(const float* __restrict__ coef, float* __restrict__ u,
-                 float* __restrict__ v, int h, int w, int color,
-                 SorParams prm) {
-  const int y = blockIdx.y;
-  const int x = 2 * (blockIdx.x * THREADS + threadIdx.x) + ((y + color) & 1);
-  if (x >= w) return;
-  const int64_t hw = (int64_t)h * w;
-  const int64_t p = (int64_t)y * w + x;
+struct Tiling {
+  int h, w;            // image
+  int tile_h, tile_w;  // interior of a block
+  int halo;
+  int cap_h, cap_hw;   // shared rows, and cells per colour and row
+};
 
-  const float ix = coef[p];
-  const float iy = coef[hw + p];
-  const float c = coef[2 * hw + p];
-  const float ixx = coef[3 * hw + p];
-  const float ixy = coef[4 * hw + p];
-  const float iyy = coef[5 * hw + p];
-  const float cgx = coef[6 * hw + p];
-  const float cgy = coef[7 * hw + p];
-  const float uc = u[p];
-  const float vc = v[p];
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The point solve of cell (ly, lx = 2 j + par) of the copy: its new
+// (u, v).  row_c is the start of its row in its colour's half of plane 0,
+// row_o the same row in the other colour's half.
+__device__ __forceinline__ void point_solve(
+    const float* row_c, const float* row_o, int64_t plane_stride, int j,
+    int par, int ly, int lx, int lh, int lw, int hw, const SorParams& prm,
+    float& u_new_out, float& v_new_out) {
+  const float ix = row_c[j];
+  const float iy = row_c[plane_stride + j];
+  const float c = row_c[2 * plane_stride + j];
+  const float ixx = row_c[3 * plane_stride + j];
+  const float ixy = row_c[4 * plane_stride + j];
+  const float iyy = row_c[5 * plane_stride + j];
+  const float cgx = row_c[6 * plane_stride + j];
+  const float cgy = row_c[7 * plane_stride + j];
+  const float uc = row_c[8 * plane_stride + j];
+  const float vc = row_c[9 * plane_stride + j];
 
   const float lam = prm.lam;
   const float eps2 = prm.eps2;
@@ -77,13 +103,22 @@ sor_color_kernel(const float* __restrict__ coef, float* __restrict__ u,
   const float rgy = cgy + ixy * uc + iyy * vc;
   const float wg = (1.0f / sqrtf(rgx * rgx + rgy * rgy + eps2)) * prm.wgrad;
 
-  // Neumann neighbours: up, down, left, right (dense.py's navg order).
-  const int64_t pu = y > 0 ? p - w : p;
-  const int64_t pd = y < h - 1 ? p + w : p;
-  const int64_t pl = x > 0 ? p - 1 : p;
-  const int64_t pr = x < w - 1 ? p + 1 : p;
-  const float ubar = (u[pu] + u[pd] + u[pl] + u[pr]) * 0.25f;
-  const float vbar = (v[pu] + v[pd] + v[pl] + v[pr]) * 0.25f;
+  // Neumann neighbours: up, down, left, right (dense.py's navg order); all
+  // of the other colour, at half-row index j (up, down), j - 1 + par (left)
+  // and j + par (right).
+  const float* uo = row_o + 8 * plane_stride;
+  const float* vo = row_o + 9 * plane_stride;
+  const int jl = j - 1 + par, jr = j + par;
+  const float u_up = ly > 0 ? uo[j - hw] : uc;
+  const float u_dn = ly < lh - 1 ? uo[j + hw] : uc;
+  const float u_lf = lx > 0 ? uo[jl] : uc;
+  const float u_rt = lx < lw - 1 ? uo[jr] : uc;
+  const float v_up = ly > 0 ? vo[j - hw] : vc;
+  const float v_dn = ly < lh - 1 ? vo[j + hw] : vc;
+  const float v_lf = lx > 0 ? vo[jl] : vc;
+  const float v_rt = lx < lw - 1 ? vo[jr] : vc;
+  const float ubar = (u_up + u_dn + u_lf + u_rt) * 0.25f;
+  const float vbar = (v_up + v_dn + v_lf + v_rt) * 0.25f;
 
   const float a11 = lam + wd * ix * ix + wg * (ixx * ixx + ixy * ixy);
   const float a12 = wd * ix * iy + wg * (ixx * ixy + ixy * iyy);
@@ -94,30 +129,130 @@ sor_color_kernel(const float* __restrict__ coef, float* __restrict__ u,
   det = fabsf(det) < 1e-12f ? 1e-12f : det;
   const float u_new = (a22 * b1 - a12 * b2) / det;
   const float v_new = (a11 * b2 - a12 * b1) / det;
-  u[p] = uc + prm.omega * (u_new - uc);
-  v[p] = vc + prm.omega * (v_new - vc);
+  u_new_out = uc + prm.omega * (u_new - uc);
+  v_new_out = vc + prm.omega * (v_new - vc);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
+                const float* __restrict__ v_in, float* __restrict__ u_out,
+                float* __restrict__ v_out, Tiling tl, int sweeps,
+                SorParams prm) {
+  extern __shared__ float smem[];
+  const int h = tl.h, w = tl.w;
+  const int ty0 = blockIdx.y * tl.tile_h, tx0 = blockIdx.x * tl.tile_w;
+  const int ty1 = min(h, ty0 + tl.tile_h), tx1 = min(w, tx0 + tl.tile_w);
+  const int gy0 = max(0, ty0 - tl.halo), gx0 = max(0, tx0 - tl.halo);
+  const int lh = min(h, ty1 + tl.halo) - gy0;
+  const int lw = min(w, tx1 + tl.halo) - gx0;
+  const int q = (gy0 + gx0) & 1;  // colour of local cell (0, 0)
+  const int hw = tl.cap_hw;
+  const int64_t colour_stride = (int64_t)tl.cap_h * hw;
+  const int64_t plane_stride = 2 * colour_stride;
+  // Cell (ly, lx) of plane k: smem + at(k, ly, lx).
+  auto at = [&](int k, int ly, int lx) -> int64_t {
+    return k * plane_stride + ((ly + lx + q) & 1) * colour_stride
+           + (int64_t)ly * hw + (lx >> 1);
+  };
+
+  const int64_t n = (int64_t)h * w;
+  for (int ly = threadIdx.y; ly < lh; ly += blockDim.y) {
+    for (int lx = threadIdx.x; lx < lw; lx += blockDim.x) {
+      const int64_t g = (int64_t)(gy0 + ly) * w + gx0 + lx;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        copy4_async(smem + at(k, ly, lx), coef + k * n + g);
+      copy4_async(smem + at(8, ly, lx), u_in + g);
+      copy4_async(smem + at(9, ly, lx), v_in + g);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  for (int pass = 0; pass < 2 * sweeps; ++pass) {
+    const int colour = pass & 1;
+    const int m = 2 * sweeps - 1 - pass;  // margin around the interior
+    const int ry0 = max(0, ty0 - m) - gy0, ry1 = min(h, ty1 + m) - gy0;
+    const int rx0 = max(0, tx0 - m) - gx0, rx1 = min(w, tx1 + m) - gx0;
+    for (int ly = ry0 + threadIdx.y; ly < ry1; ly += blockDim.y) {
+      const int par = (ly + q + colour) & 1;  // lx = 2 j + par
+      float* row_c = smem + colour * colour_stride + (int64_t)ly * hw;
+      const float* row_o = smem + (1 - colour) * colour_stride
+                           + (int64_t)ly * hw;
+      for (int j = threadIdx.x; j < hw; j += blockDim.x) {
+        const int lx = 2 * j + par;
+        if (lx < rx0 || lx >= rx1) continue;
+        float un, vn;
+        point_solve(row_c, row_o, plane_stride, j, par, ly, lx, lh, lw, hw,
+                    prm, un, vn);
+        row_c[8 * plane_stride + j] = un;
+        row_c[9 * plane_stride + j] = vn;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int gy = ty0 + threadIdx.y; gy < ty1; gy += blockDim.y) {
+    for (int gx = tx0 + threadIdx.x; gx < tx1; gx += blockDim.x) {
+      const int64_t g = (int64_t)gy * w + gx;
+      u_out[g] = smem[at(8, gy - gy0, gx - gx0)];
+      v_out[g] = smem[at(9, gy - gy0, gx - gx0)];
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int sor_threads_per_block() { return THREADS; }
-
-// coef: (8, h, w) f32; u, v: (h, w) f32, updated in place by `iters`
-// sweeps (2 * iters launches: colour 0, then colour 1, per sweep).
-extern "C" int sor_launch(const float* coef, float* u, float* v, int h,
-                          int w, int iters, float omega, float lam,
-                          float eps2, float wbr, float wgrad, void* stream) {
+// coef: (8, h, w) f32; u_in, v_in: (h, w) f32, read only.  Runs `iters`
+// sweeps in ceil(iters / sweeps) launches of `sweeps` sweeps each (the last
+// may run fewer) over tiles of tile_h x tile_w with the given halo; the
+// result lands in (u_out, v_out).  (u_tmp, v_tmp) is the other buffer of
+// the ping-pong between launches (unused with one launch).  Returns the
+// number of launches in *launches and a cudaError_t.
+extern "C" int sor_launch(const float* coef, const float* u_in,
+                          const float* v_in, float* u_out, float* v_out,
+                          float* u_tmp, float* v_tmp, int h, int w, int iters,
+                          int tile_h, int tile_w, int halo, int sweeps,
+                          float omega, float lam, float eps2, float wbr,
+                          float wgrad, int* launches, void* stream) {
+  *launches = 0;
   if (h <= 0 || w <= 0 || iters <= 0) return 0;
+  if (tile_h <= 0 || tile_w <= 0 || sweeps <= 0 || halo < 0)
+    return (int)cudaErrorInvalidValue;
   const SorParams prm{omega, lam, eps2, wbr, wgrad};
-  const int half = (w + 1) / 2;
-  const dim3 grid((half + THREADS - 1) / THREADS, h);
-  for (int s = 0; s < iters; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      sor_color_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          coef, u, v, h, w, color, prm);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
+  Tiling tl;
+  tl.h = h;
+  tl.w = w;
+  tl.tile_h = tile_h;
+  tl.tile_w = tile_w;
+  tl.halo = halo;
+  tl.cap_h = std::min(h, tile_h + 2 * halo);
+  tl.cap_hw = (std::min(w, tile_w + 2 * halo) + 1) / 2;
+  // 10 planes of the copied region, split by colour.
+  const size_t smem = sizeof(float) * NPLANES * 2 * tl.cap_h * tl.cap_hw;
+  cudaError_t err = cudaFuncSetAttribute(
+      sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int bx = std::min(tl.cap_hw, MAX_THREADS);
+  const int by = std::max(1, std::min(tl.cap_h, MAX_THREADS / bx));
+  const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h);
+  const int n_launch = (iters + sweeps - 1) / sweeps;
+  const float* us = u_in;
+  const float* vs = v_in;
+  for (int l = 0; l < n_launch; ++l) {
+    // The last launch writes (u_out, v_out); the ones before alternate.
+    const bool to_out = ((n_launch - 1 - l) & 1) == 0;
+    float* ud = to_out ? u_out : u_tmp;
+    float* vd = to_out ? v_out : v_tmp;
+    const int s = std::min(sweeps, iters - l * sweeps);
+    sor_tile_kernel<<<grid, dim3(bx, by), smem, (cudaStream_t)stream>>>(
+        coef, us, vs, ud, vd, tl, s, prm);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+    us = ud;
+    vs = vd;
   }
   return 0;
 }

@@ -25,6 +25,7 @@ State vector ((128,) float32 per start), the JAX layout slot for slot:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -293,22 +294,58 @@ def lm_iter_plain(state, px, rho_prev, rho_cand, loss_delta: float = 0.0):
 # ---------------------------------------------------------------------------
 
 
+# Routes of csrc/lm_iter.cu's lm_iter_launch: its kernels of one name per
+# wrapper.
+_ROUTE = {"lm_iter": 0, "lm_iter_multi": 1}
+
+
 def _lib():
     lib = _build.load("lm_iter")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.lm_iter_launch.argtypes = [p, p, ll, ll, p, ll, p, p, ll, i,
-                                       ctypes.c_float, p, p, p, p, i, p]
+        lib.lm_iter_launch.argtypes = [i, p, p, ll, ll, p, ll, p, p, ll, i,
+                                       ctypes.c_float, p, p, p, p, i, p, p,
+                                       p]
         lib.lm_iter_launch.restype = ctypes.c_int
         lib.lm_sums_launch.argtypes = [p, p, ll, ll, p, ll, p, p, ll, i,
                                        ctypes.c_float, p, p, p, i, p, p]
         lib.lm_sums_launch.restype = ctypes.c_int
         lib.lm_decide_launch.argtypes = [p, p, i, p, p]
         lib.lm_decide_launch.restype = ctypes.c_int
-        lib.lm_pixels_per_block.restype = ctypes.c_int
+        lib.lm_sweep_blocks.argtypes = [ll, i]
+        lib.lm_sweep_blocks.restype = ctypes.c_int
         lib.lm_max_starts.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _sweep_blocks(device_index: int, n: int, j: int) -> int:
+    """Blocks of the persistent sweep grid that csrc/lm_iter.cu sizes for
+    n pixels and j starts on this device (its first call on a device also
+    sets the sweep kernels' shared-memory limit there)."""
+    lib = _lib()
+    if j > lib.lm_max_starts():
+        raise ValueError(f"at most {lib.lm_max_starts()} starts, got {j}")
+    with torch.cuda.device(device_index):
+        nblk = lib.lm_sweep_blocks(n, j)
+    if nblk <= 0:
+        raise RuntimeError("lm_sweep_blocks: CUDA error")
+    return nblk
+
+
+def _sweep_scratch(j: int, n: int, dev):
+    """(partial (J, 71, blocks), sums (J, 71), ticket pointer, blocks): the
+    sweep's scratch in one allocation, the one int of the ticket after the
+    sums."""
+    nblk = _sweep_blocks(dev.index, n, j)
+    rows = j * N_SUMS
+    scratch = torch.empty(rows * (nblk + 1) + 1, dtype=torch.float32,
+                          device=dev)
+    partial = scratch[:rows * nblk].view(j, N_SUMS, nblk)
+    sums = scratch[rows * nblk:rows * (nblk + 1)].view(j, N_SUMS)
+    ticket = scratch.data_ptr() + 4 * rows * (nblk + 1)
+    return partial, sums, ticket, nblk
 
 
 def _check(state, px, masks, rho_prev, rho_cand):
@@ -334,27 +371,24 @@ def _check(state, px, masks, rho_prev, rho_cand):
         raise ValueError("masks rows must be contiguous")
 
 
-def _launch(state, px, masks, rho_prev, rho_cand, loss_delta):
-    """Launch the sweep + decide kernel pair; returns the new tensors."""
+def _launch(route, state, px, masks, rho_prev, rho_cand, loss_delta):
+    """Launch the sweep + reduce-and-decide kernel pair of `route`; returns
+    the new tensors."""
     lib = _lib()
     j, n = rho_prev.shape
-    if j > lib.lm_max_starts():
-        raise ValueError(f"at most {lib.lm_max_starts()} starts, got {j}")
-    nblk = max(1, -(-n // lib.lm_pixels_per_block()))
     dev = px.device
     with torch.cuda.device(dev):
+        partial, sums, ticket, nblk = _sweep_scratch(j, n, dev)
         out = torch.empty((j, 128), dtype=torch.float32, device=dev)
         rho_eff = torch.empty((j, n), dtype=torch.float32, device=dev)
         rho_new = torch.empty((j, n), dtype=torch.float32, device=dev)
-        partial = torch.empty((nblk, j, N_SUMS), dtype=torch.float32,
-                              device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.lm_iter_launch(
-            state.data_ptr(), px.data_ptr(), n, n, masks.data_ptr(),
-            masks.stride(0), rho_prev.data_ptr(), rho_cand.data_ptr(), n, j,
-            float(loss_delta), out.data_ptr(), rho_eff.data_ptr(),
-            rho_new.data_ptr(), partial.data_ptr(), nblk, stream),
-            "lm_iter_launch")
+            _ROUTE[route], state.data_ptr(), px.data_ptr(), n, n,
+            masks.data_ptr(), masks.stride(0), rho_prev.data_ptr(),
+            rho_cand.data_ptr(), n, j, float(loss_delta), out.data_ptr(),
+            rho_eff.data_ptr(), rho_new.data_ptr(), partial.data_ptr(), nblk,
+            sums.data_ptr(), ticket, stream), "lm_iter_launch")
     return out, rho_eff, rho_new
 
 
@@ -364,8 +398,9 @@ def lm_iter_multi(state, px, masks, rho_prev, rho_cand,
 
     state (J, 128); px (8, N) (rows 0-5 used); masks, rho_prev, rho_cand
     (J, N); all float32.  On CUDA tensors this launches the kernel pair of
-    csrc/lm_iter.cu (counted in `lm_iter_multi.launches`); on CPU tensors
-    it runs `lm_iter_multi_plain`.
+    csrc/lm_iter.cu, the sweep and the reduce-and-decide (counted once in
+    `lm_iter_multi.launches`); on CPU tensors it runs
+    `lm_iter_multi_plain`.
 
     Returns (new_state (J, 128), rho_eff (J, N), rho_new (J, N)).
     """
@@ -375,7 +410,8 @@ def lm_iter_multi(state, px, masks, rho_prev, rho_cand,
                                    loss_delta)
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
-    result = _launch(state, px, masks, rho_prev, rho_cand, loss_delta)
+    result = _launch("lm_iter_multi", state, px, masks, rho_prev, rho_cand,
+                     loss_delta)
     lm_iter_multi.launches += 1
     return result
 
@@ -398,8 +434,8 @@ def lm_iter(state, px, rho_prev, rho_cand, loss_delta: float = 0.0):
         return lm_iter_plain(state, px, rho_prev, rho_cand, loss_delta)
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
-    out, rho_eff, rho_new = _launch(state[None], px, px[6:7], rho_prev,
-                                    rho_cand, loss_delta)
+    out, rho_eff, rho_new = _launch("lm_iter", state[None], px, px[6:7],
+                                    rho_prev, rho_cand, loss_delta)
     lm_iter.launches += 1
     return out[0], rho_eff, rho_new
 
@@ -429,16 +465,11 @@ def lm_sums_multi(state, px, masks, rho_prev, rho_cand,
         raise ValueError(f"unsupported device {px.device}")
     lib = _lib()
     j, n = rho_prev.shape
-    if j > lib.lm_max_starts():
-        raise ValueError(f"at most {lib.lm_max_starts()} starts, got {j}")
-    nblk = max(1, -(-n // lib.lm_pixels_per_block()))
     dev = px.device
     with torch.cuda.device(dev):
+        partial, sums, _, nblk = _sweep_scratch(j, n, dev)
         rho_eff = torch.empty((j, n), dtype=torch.float32, device=dev)
         rho_new = torch.empty((j, n), dtype=torch.float32, device=dev)
-        partial = torch.empty((nblk, j, N_SUMS), dtype=torch.float32,
-                              device=dev)
-        sums = torch.empty((j, N_SUMS), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.lm_sums_launch(
             state.data_ptr(), px.data_ptr(), n, n, masks.data_ptr(),

@@ -15,7 +15,9 @@ csrc/score.cu), error sums rtol 1e-5 (summation order).  B2/B3 state rtol
 Cauchy-Schwarz bound (tests/test_torch_refine.py explains both), compared
 at unit damping.  B4 warp, B5 SOR and B6 median are bit-exact: each kernel
 runs its plain version's IEEE operations in the same order (B4 and B5 built
-without FMA contraction), and the median uses only min and max.  B7 (the
+without FMA contraction; B5's tiles with halos change no pixel's
+operations, tests/test_torch_sor_tiles.py), and the median uses only min
+and max.  B7 (the
 split LM iteration) is held to its plain versions with B3's tolerances, and
 to B3 itself bit for bit: both run the same sweep, reduction and decide
 code.  B8 (the z-buffer splat) is bit-exact: integer keys and a colour
@@ -37,7 +39,10 @@ from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
 TOL = 0.05
 HUBER = 1e-3
-N = 4096
+# Pixel counts of the LM tests: below one 1,024-pixel chunk of the sweep
+# kernel, a whole number of chunks, a ragged count, and more chunks than
+# the persistent grid has blocks (checked in the test that uses it).
+LM_SIZES = [700, 4096, 5003, 600_011]
 
 
 @pytest.fixture
@@ -81,26 +86,26 @@ def test_score_kernel_matches_plain(cuda_device, n, t):
                                rtol=1e-5, atol=1e-6)
 
 
-def _lm_problem(j, seed=8):
-    """RS flow of N random points with coherent outliers, J starts."""
+def _lm_problem(j, n=4096, seed=8):
+    """RS flow of n random points with coherent outliers, J starts."""
     rng = np.random.default_rng(seed)
     f, h, gamma = 500.0, 600, 0.9
-    pix = rng.uniform(0, 599, size=(N, 2))
+    pix = rng.uniform(0, 599, size=(n, 2))
     coords = ((pix - 300.0) / f).astype(np.float32)
     v = np.array([0.02, -0.01, 0.015], np.float32)
     w = np.array([0.004, -0.002, 0.008], np.float32)
-    rho = (1.0 / rng.uniform(3.0, 9.0, size=N)).astype(np.float32)
-    fy = rng.normal(scale=2.0, size=N)
+    rho = (1.0 / rng.uniform(3.0, 9.0, size=n)).astype(np.float32)
+    fy = rng.normal(scale=2.0, size=n)
     alpha = get_alpha(fy, h, gamma).astype(np.float32)
     alpha_k = get_alpha_k(pix[:, 1], fy, h, gamma).astype(np.float32)
     flow = predict_flow(*[torch.from_numpy(a) for a in (coords, rho, v, w)],
                         0.3, torch.from_numpy(alpha),
                         torch.from_numpy(alpha_k)).numpy()
-    flow = flow + rng.normal(scale=2e-4, size=(N, 2)).astype(np.float32)
+    flow = flow + rng.normal(scale=2e-4, size=(n, 2)).astype(np.float32)
     flow[:64] += np.array([3e-3, -2e-3], np.float32)
-    masks = (rng.uniform(size=(j, N)) > 0.2).astype(np.float32)
+    masks = (rng.uniform(size=(j, n)) > 0.2).astype(np.float32)
     px = np.stack([coords[:, 0], coords[:, 1], flow[:, 0], flow[:, 1], alpha,
-                   alpha_k, masks[0], np.zeros(N, np.float32)])
+                   alpha_k, masks[0], np.zeros(n, np.float32)])
     theta = np.concatenate([
         v[None] * np.array([1.1, 1.4, 0.7, 1.2])[:j, None] + 0.003,
         w[None] * np.array([0.9, 0.5, 1.5, 1.1])[:j, None],
@@ -119,10 +124,14 @@ def _lm_problem(j, seed=8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", LM_SIZES)
 @pytest.mark.parametrize("j", [1, 4])
 @pytest.mark.parametrize("loss_delta", [0.0, HUBER])
-def test_lm_kernels_match_plain(cuda_device, j, loss_delta):
-    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j)]
+def test_lm_kernels_match_plain(cuda_device, j, loss_delta, n):
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j, n)]
+    if n == LM_SIZES[-1]:
+        blocks = trk._lib().lm_sweep_blocks(n, j)
+        assert n > 1024 * blocks, (n, blocks)
     rcd = rpd
     # Bootstrap sweep, then one full step, each from the same state and
     # solving at unit damping (an accept divides the slot by 3).
@@ -151,10 +160,11 @@ def test_lm_kernels_match_plain(cuda_device, j, loss_delta):
 
 
 @pytest.mark.cuda
-def test_lm_kernel_is_deterministic(cuda_device):
-    """The decide kernel reduces the block partials in a fixed order: two
+@pytest.mark.parametrize("n", LM_SIZES)
+def test_lm_kernel_is_deterministic(cuda_device, n):
+    """Every sum is added in a fixed order (no float atomics): two
     launches on the same inputs give bit-identical states."""
-    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(4)]
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(4, n)]
     a = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
     b = trk.lm_iter_multi(st, pxd, md, rpd, rpd, loss_delta=HUBER)
     for x, y in zip(a, b):
@@ -162,12 +172,13 @@ def test_lm_kernel_is_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", LM_SIZES)
 @pytest.mark.parametrize("j", [1, 4])
-def test_lm_split_kernels_match_plain_and_fused(cuda_device, j):
+def test_lm_split_kernels_match_plain_and_fused(cuda_device, j, n):
     """B7: the sums kernel and the decide kernel against their plain
     versions, and sums -> decide against B3's fused launch, bit for bit,
     over a bootstrap sweep and one full step."""
-    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j)]
+    st, pxd, md, rpd = [a.to(cuda_device) for a in _lm_problem(j, n)]
     rcd = rpd
     for _ in range(2):
         st = st.clone()
@@ -221,8 +232,9 @@ def test_zbuffer_kernel_matches_plain(cuda_device, h, w):
 
 
 # Pyramid shapes of the main path: odd rows and columns, the smallest
-# level (17 x 30) and a level of the half-resolution backward pass.
-FLOW_SHAPES = [(17, 30), (37, 61), (135, 240)]
+# level (17 x 30), a level of the half-resolution backward pass, and two
+# levels that the SOR kernel cuts into many tiles with ragged edges.
+FLOW_SHAPES = [(17, 30), (37, 61), (135, 240), (270, 480), (540, 960)]
 
 
 def _smooth_plane(h, w, rng):
@@ -267,8 +279,9 @@ def test_median_kernel_matches_plain(cuda_device, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 7, 20])
 @pytest.mark.parametrize("h,w", FLOW_SHAPES)
-def test_sor_kernel_matches_plain(cuda_device, h, w):
+def test_sor_kernel_matches_plain(cuda_device, h, w, iters):
     """Coefficient planes of a real warp (gradients of a smooth image pair)
     with a flow far from the solution, so the Charbonnier weights vary."""
     rng = np.random.default_rng(h + w)
@@ -286,12 +299,15 @@ def test_sor_kernel_matches_plain(cuda_device, h, w):
                      gy2 - gy1 - gxy * u0 - gyy * v0]).astype(np.float32)
     coef, u0, v0 = [torch.from_numpy(a).to(cuda_device)
                     for a in (coef, u0, v0)]
-    params = dict(iters=7, omega=1.85, lam=0.08, eps2=1e-6, wbr=1.0,
+    params = dict(iters=iters, omega=1.85, lam=0.08, eps2=1e-6, wbr=1.0,
                   wgrad=0.7)
     before = tsor.sor_sweeps.launches
     u_k, v_k = tsor.sor_sweeps(coef, u0, v0, **params)
     torch.cuda.synchronize()
-    assert tsor.sor_sweeps.launches == before + 2 * params["iters"]
+    launches = tsor.launches_per_call(h, w, iters,
+                                      tsor.card_limits(cuda_device))
+    assert tsor.sor_sweeps.launches == before + launches
+    assert launches <= -(-iters // tsor.SWEEPS_PER_LAUNCH)
     u_p, v_p = tsor.sor_sweeps_plain(coef, u0, v0, **params)
     assert not torch.equal(u_p, u0)
     assert torch.equal(u_k, u_p) and torch.equal(v_k, v_p)

@@ -149,24 +149,25 @@ def test_flow_forward_backward_matches_jax(fb_pair, fb_results):
 def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
     """The main path calls B4-B6 as often as chip_smoke.py's count, which
     it asserts against the launch counters on the card (the SOR wrapper
-    launches 2 * iters kernels per call), whichever engine names the
-    config carries over from JAX."""
+    launches `launches_per_call` kernels per call), whichever engine names
+    the config carries over from JAX."""
     calls = {"warp": 0, "sor_sweeps": 0, "median3_planes": 0}
 
     def spy(name, fn, weight):
         def wrapped(*args, **kwargs):
-            calls[name] += weight(kwargs)
+            calls[name] += weight(args, kwargs)
             return fn(*args, **kwargs)
         return wrapped
 
     monkeypatch.setattr(twarp, "warp",
-                        spy("warp", twarp.warp, lambda kw: 1))
+                        spy("warp", twarp.warp, lambda a, kw: 1))
     monkeypatch.setattr(tsor, "sor_sweeps",
                         spy("sor_sweeps", tsor.sor_sweeps,
-                            lambda kw: 2 * kw["iters"]))
+                            lambda a, kw: tsor.launches_per_call(
+                                *a[1].shape, kw["iters"])))
     monkeypatch.setattr(tmedian, "median3_planes",
                         spy("median3_planes", tmedian.median3_planes,
-                            lambda kw: 1))
+                            lambda a, kw: 1))
     i1, i2, _ = fb_pair
     cfg = tconfig.E2E_FLOW_PRESET._replace(iters=2, warps_coarse=2,
                                            warp_engine=engine,
