@@ -15,19 +15,24 @@ each path against their plain PyTorch versions.
 Phases, each printing its lines before the next starts (any failure raises
 and the script exits non-zero; nothing is caught and continued):
   [1 device]  the card's name, then nvidia-smi's "name, power.limit" line
-  [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds and
-              ptxas usage
+  [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds,
+              ptxas usage, and B1's SASS instructions per pixel and
+              hypothesis (cuobjdump -sass, ops/kernels/_sass.py)
   [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi (J = 4 and 1), B7
               lm_sums_multi + lm_decide, B4 warp, B5 sor_sweeps, B6
-              median3_planes vs their plain versions at full-HD shapes (B7
-              also against B3, bit for bit); median ms of 20 timed runs of
-              each, of its plain version and (B4) of F.grid_sample, and its
-              bound; B5's tile plans at every pyramid level ("*" marks
+              median3_planes (and median3_flow from both flow layouts) vs
+              their plain versions at full-HD shapes (B7 also against B3,
+              bit for bit); median ms of 20 timed runs of each, of its
+              plain version and (B4) of F.grid_sample, and its bound; B1's
+              squared threshold s* and the pairs within 1 ulp of it; B5's
+              tile plans at every pyramid level ("*" marks
               sor.tile_plan's choice; launches in parentheses)
   [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
-              per-stage ms (CUDA events), peak memory, launch counts
+              per-stage ms (CUDA events), peak memory, launch counts; the
+              hypotheses RANSAC picks on seed-1 draws
   [5 parity]  the solver slice and the e2e path at 270x480 on the card
-              (kernels) vs on the CPU (plain versions), same RANSAC draws
+              (kernels) vs on the CPU (plain versions), same RANSAC draws;
+              the hypotheses RANSAC picks on the card
   [6 e2e]     the main path at full HD: 1 warm-up and 3 timed passes,
               per-stage ms, host wall time, peak memory, launch counts of
               all six kernels asserted against the configuration's (B5 at
@@ -75,10 +80,13 @@ E2E_GATES = {"flow_median_px": 1e-4, "flow_p99_px": 1e-3,
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # Float32 operations per unit of work, counted from each kernel's source:
-# per pixel and hypothesis (score.cu), per pixel and start (lm_iter.cu,
-# its header's count), per output pixel (warp.cu), per pixel and sweep
-# (sor.cu), per pixel and plane (median.cu: 19 comparators, min and max).
-OPS_SCORE = 54
+# per valid pixel and hypothesis (score.cu: 45, with the pixel invariants
+# hoisted, the inlier's root and sum included) and per valid pixel (its 8
+# hoisted operations), per pixel and start (lm_iter.cu, its header's
+# count), per output pixel (warp.cu), per pixel and sweep (sor.cu), per
+# pixel and plane (median.cu: 19 comparators, min and max).
+OPS_SCORE = 45
+OPS_SCORE_PIXEL = 8
 OPS_LM = 250
 OPS_WARP = 21
 OPS_SOR = 92
@@ -308,6 +316,13 @@ def phase_build():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # B1's SASS per pixel and hypothesis: one MUFU.RCP (the IEEE division)
+    # a pair, so a loop's instructions per MUFU.RCP.
+    from rs_sfm_tpu_torch.ops.kernels import _sass
+
+    for line in _sass.report(str(_build.library_path("score")),
+                             "score_kernel", "MUFU.RCP"):
+        print(f"  score SASS: {line}")
     sys.stdout.flush()
 
 
@@ -349,8 +364,10 @@ def phase_kernels(dev):
         alpha_k[idx].to(f64), False)
     out = {}
 
-    # B1: every pixel's error is the same IEEE arithmetic on both sides, so
-    # counts are exactly equal; error sums differ by summation order.
+    # B1: every pixel's squared residual is the same IEEE arithmetic on
+    # both sides, and the kernel's test s < s* is the plain sqrt(s) < tol,
+    # so counts are exactly equal; error sums differ by summation order
+    # and the kernel's approximate root.
     px = sk.pack_pixels(coords, flow_n, alpha, alpha_k, valid)
     hy = sk.pack_hyps(v_all, w_all, k_all)
     num_k, err_k = sk.score_hypotheses(px, hy, tol)
@@ -360,15 +377,25 @@ def phase_kernels(dev):
     check(torch.allclose(err_k, err_p, rtol=1e-5, atol=0.0),
           "B1 error sums within rtol 1e-5 of plain")
     err = float(torch.max(torch.abs(err_k - err_p)))
+    # The pairs whose squared residual lies within 1 ulp of s*.
+    sstar = sk.sq_threshold(tol)
+    sbits = int(np.float32(sstar).view(np.uint32))
+    ok = px[6] > 0.5
+    near = 0
+    for sq in sk.squared_residuals_plain(px, hy):
+        d = torch.abs(sq.view(torch.int32).to(torch.int64) - sbits)
+        near += int(((d <= 1) & ok).sum())
+    n_valid = int(ok.sum())
     ms = time_ms(lambda: sk.score_hypotheses(px, hy, tol))
     plain_ms = time_ms(lambda: sk.score_hypotheses_plain(px, hy, tol))
     t = hy.shape[0]
     out["score_hypotheses"] = record(
         err, ms, plain_ms, 4 * (px.numel() + hy.numel() + 2 * t),
-        OPS_SCORE * n * t)
-    print(f"[3 kernels] B1 score_hypotheses N={n} T={t}: counts "
-          f"equal (best {int(num_k.max())}), error sums max abs diff {err:.3e}"
-          f"; {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+        OPS_SCORE * n_valid * t + OPS_SCORE_PIXEL * n_valid)
+    print(f"[3 kernels] B1 score_hypotheses N={n} ({n_valid} valid) T={t}: "
+          f"counts equal (best {int(num_k.max())}), error sums max abs diff "
+          f"{err:.3e}; s* = {sstar!r} for tol {tol} ({near} pairs within 1 "
+          f"ulp of it); {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
           f"{out['score_hypotheses']['bound_ms']:.4f} ms", flush=True)
 
     # B2/B3 inputs: the four best hypotheses, their inlier masks and
@@ -669,10 +696,17 @@ def phase_flow_kernels(dev):
           f"{r['library_ms']:.4f} ms (max abs diff to it {lib_err:.2e}), "
           f"bound {r['bound_ms']:.4f} ms", flush=True)
 
-    # B6: both planes of make_flow; bit-exact.
+    # B6: both planes of make_flow; bit-exact.  As (2, H, W) planes, and as
+    # the flow solver calls it: from SOR's separate u and v, and from an
+    # (H, W, 2) flow, each into a contiguous (H, W, 2) flow.
     planes = flow.permute(2, 0, 1).contiguous()
     got = km.median3_planes(planes)
     ref = km.median3_plain(planes)
+    u, v = planes[0].clone(), planes[1].clone()
+    flows = {"u, v": (u, v), "(H, W, 2)": (flow[..., 0], flow[..., 1])}
+    for a, b in flows.values():
+        check(torch.equal(km.median3_flow(a, b), ref.permute(1, 2, 0)),
+              "B6 median3_flow bit-exact to plain")
     torch.cuda.synchronize()
     check(torch.equal(got, ref), "B6 median bit-exact to plain")
     out["median3_planes"] = record(
@@ -681,9 +715,13 @@ def phase_flow_kernels(dev):
         time_ms(lambda: km.median3_plain(planes)), 2 * 4 * 2 * n,
         OPS_MEDIAN * 2 * n)
     r = out["median3_planes"]
+    r["ms_flow"] = {k: time_ms(lambda a=a, b=b: km.median3_flow(a, b))
+                    for k, (a, b) in flows.items()}
     print(f"[3 kernels] B6 median3_planes (2, {H}, {W}): bit-exact to plain;"
           f" {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, bound "
-          f"{r['bound_ms']:.4f} ms", flush=True)
+          f"{r['bound_ms']:.4f} ms; median3_flow into ({H}, {W}, 2) from "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in r["ms_flow"].items()),
+          flush=True)
 
     # B5: 20 sweeps on the finest level's coefficient planes; bit-exact.
     coef, u0, v0, prm = sor_inputs(i1, i2)
@@ -807,7 +845,95 @@ def phase_slice(dev):
               + f" total={sum(med.values()):.2f}; host wall "
               f"{statistics.median(walls):.2f}; peak {peak:.2f} GiB; "
               f"launches {counts}", flush=True)
+    slice_picks(dev)
     return launches
+
+
+def ransac_picks(flow, intr, cfg, draws, pixel_mask=None):
+    """(best hypothesis, diversity top-J) that RANSAC picks on `flow` from
+    the injected draws, as indices of the hypotheses: the result's v
+    matched against every hypothesis' v (the same draws give the same
+    hypotheses).  B1's error sums decide between hypotheses of equal
+    count, so a change of their summation order can swap picks.  Uses only
+    entry points that earlier trees of the port also have."""
+    import torch
+
+    from rs_sfm_tpu_torch.solver.minimal import calculate_velocities
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import ransac
+
+    coords, flow_n, alpha, alpha_k, valid = prepare_flow_inputs(
+        flow, intr, GAMMA, cfg)
+    if pixel_mask is not None:
+        valid = valid & pixel_mask.reshape(-1)
+    rr = ransac(coords, flow_n, alpha, alpha_k, valid, use_k=False,
+                trials=cfg.ransac_trials, tolerance=cfg.ransac_tol,
+                sample_indices=draws, engine=cfg.ransac_engine,
+                top_j=cfg.refine_starts if cfg.use_refinement else 1,
+                top_j_diversity=cfg.refine_start_diversity)
+    idx = torch.as_tensor(draws, dtype=torch.int64).to(coords.device)
+    f64 = torch.float64
+    _, v_all, _ = calculate_velocities(
+        coords[idx].to(f64), flow_n[idx].to(f64), alpha[idx].to(f64),
+        alpha_k[idx].to(f64), False)
+
+    def index(v):
+        return int(torch.nonzero((v_all == v).all(dim=-1))[0])
+
+    return index(rr.v), [index(v) for v in rr.top_v], int(rr.num_inliers)
+
+
+def slice_picks(dev):
+    """Phase 4's picks: both slice configurations at full HD, seed-1
+    draws."""
+    import torch
+
+    from rs_sfm_tpu_torch.config import SLICE_CONFIGS
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    flow, intr = slice_inputs(dev)
+    for name, cfg in SLICE_CONFIGS.items():
+        valid = prepare_flow_inputs(flow, intr, GAMMA, cfg)[4]
+        draws = sample_valid_indices(torch.Generator(device=dev).manual_seed(1),
+                                     valid, cfg.ransac_trials).cpu()
+        best, tops, num = ransac_picks(flow, intr, cfg, draws)
+        print(f"[4 slice] {name} {W}x{H} RANSAC picks (seed-1 draws): best "
+              f"hypothesis {best} ({num} inliers), top-J {tops}", flush=True)
+
+
+def parity_picks(dev):
+    """Phase 5's picks at 270x480 on the card: both slice configurations
+    on the seed-2 draws, and the e2e estimation on the card's flow and
+    occlusion mask with seed-3 draws."""
+    import torch
+
+    from rs_sfm_tpu_torch.config import (E2E_CONFIG, E2E_FLOW_PRESET,
+                                         SLICE_CONFIGS)
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    h, w = 270, 480
+    flow_c, intr = slice_inputs("cpu", h, w, scale=0.25)
+    runs = []
+    for name, cfg in SLICE_CONFIGS.items():
+        valid = prepare_flow_inputs(flow_c, intr, GAMMA, cfg)[4]
+        draws = sample_valid_indices(torch.Generator().manual_seed(2), valid,
+                                     cfg.ransac_trials)
+        runs.append((name, ransac_picks(flow_c.to(dev), intr, cfg, draws)))
+    _, i1, i2, _ = e2e_inputs(dev, h, w)
+    fb = flow_forward_backward(i1, i2, E2E_FLOW_PRESET)
+    keep = ~fb.occlusion
+    valid = prepare_flow_inputs(fb.flow, intr, GAMMA, E2E_CONFIG)[4]
+    draws = sample_valid_indices(torch.Generator().manual_seed(3),
+                                 (valid & keep.reshape(-1)).cpu(),
+                                 E2E_CONFIG.ransac_trials)
+    runs.append(("e2e", ransac_picks(fb.flow, intr, E2E_CONFIG, draws,
+                                     pixel_mask=keep)))
+    for name, (best, tops, num) in runs:
+        print(f"[5 parity] {name} {w}x{h} RANSAC picks on the card: best "
+              f"hypothesis {best} ({num} inliers), top-J {tops}", flush=True)
 
 
 def phase_parity(dev):
@@ -894,6 +1020,7 @@ def phase_parity(dev):
           f"e2e {w}x{h}: occlusion masks differ on {occ_diff}")
     check(dv <= E2E_GATES["v_direction"] and dw <= E2E_GATES["w"],
           f"e2e {w}x{h}: v diff {dv}, w diff {dw} within gates")
+    parity_picks(dev)
 
 
 # Device kernels of B1-B6 by name (csrc/*.cu), for their ms per e2e pass.

@@ -7,144 +7,227 @@
 // What it computes, per hypothesis and pixel (the packed layouts of the
 // JAX kernel): beta = (alpha + k*alpha_k) * (2/(2+k)), the closed-form
 // inverse depth rho = <g, r>/<g, g> with g = beta*A*v and r = u - beta*B*w,
-// the residual norm err = |u - beta*(A*v*rho + B*w)|, and the inlier test
-// err < tol && valid.  Per hypothesis it reduces (inlier count, summed
-// inlier error).
+// the residual e = u - beta*(A*v*rho + B*w), and the inlier test
+// |e| < tol && valid.  Per hypothesis it reduces (inlier count, summed
+// inlier |e|).
 //
-// What bounds it on this card: arithmetic.  Each pixel is read once (28
-// bytes) and then evaluated against all T hypotheses, ~45 float32 ops
-// each: at T = 256 that is ~11.5k flops per pixel against 28 bytes, far
-// above the H100's float32 ridge point, so the CUDA cores' float32 rate
-// and the per-hypothesis reductions bound it, not HBM.
+// What bounds it on this card: instruction issue.  Each pixel is read once
+// (28 bytes) and then evaluated against all T hypotheses: at T = 256 that
+// is far above the H100's float32 ridge point.  The file is built with
+// -fmad=false (every pixel's residual bit-identical to the plain
+// version's, below), so each multiply and add issues alone, at one
+// instruction per lane per clock: half the FMA rate that the 67 TFLOP/s
+// peak assumes.  The inner loop issues about 60 instructions a pair: 41
+// multiplies and adds, 10 for the IEEE division (its fast path, check and
+// skip branch), the rest the select, the test, the root, the count and
+// the loads.
 //
-// What the design does about it: each thread keeps PPT pixels in
-// registers and loops over the hypotheses, which sit in shared memory
-// (HCHUNK x 8 floats at a time), so the only memory traffic per
-// hypothesis is a broadcast shared-memory read.  Counts are reduced per
-// warp with integer shuffles, then across the block's warps in a fixed
-// order; each block writes its partials to a (blocks, 2, T) buffer that
-// the wrapper sums (the JAX wrapper does the same outside its kernel).
-// No atomics: the result is the same on every run.
+// What the design does about it:
+// - Exact inlier test without a root.  The wrapper passes s* = the least
+//   float32 s with sqrt_rn(s) >= tol (ops/kernels/score.py::sq_threshold).
+//   sqrt_rn is monotone, so sqrt_rn(ex^2 + ey^2) < tol exactly when
+//   ex^2 + ey^2 < s*.  The root is needed only for the inliers' error
+//   sums: an approximate root (sqrt.approx.ftz.f32, one MUFU instruction,
+//   relative error about 2^-23), predicated on the test with the count and
+//   the add; the sums are held to rtol 1e-5.
+// - Pixel invariants hoisted.  (-x)*y, 1 + x*x, -(1 + y*y) and x*y are the
+//   first operations of the plain expression, computed once per pixel when
+//   its tile is staged, in the same rounding.
+// - Register tile of hypotheses against a shared pixel tile.  A block of
+//   128 threads holds 256 hypotheses in registers, two a thread, and walks
+//   a contiguous range of pixels in tiles of 256.  Each tile is staged in
+//   shared memory once (coalesced row loads), compacted to its valid
+//   pixels in order (a warp ballot and a prefix over the block's warps),
+//   and read by every thread through broadcast loads: three 16-byte loads
+//   a pixel for two pairs, and invalid pixels cost nothing.  Every thread
+//   owns its hypotheses' counts and sums, so there is no per-hypothesis
+//   reduction inside the block: each block writes one (count, sum) per
+//   hypothesis to a (blocks, 2, T) partial buffer, which the wrapper sums.
+// - Sums in a fixed order, no atomics: per thread a fresh sum per tile,
+//   added to the block's running sum after the tile; the grid size is fixed
+//   by the shapes and the device.  Repeated runs are bit-identical.
 //
-// Numerics: this file is compiled with -fmad=false and uses IEEE '/' and
-// sqrtf, in the same operation order as the plain PyTorch version
-// (ops/kernels/score.py::score_hypotheses_plain), so every pixel's error is
-// bit-identical to it on the card and the inlier counts match exactly.
+// Numerics: the residual is computed with -fmad=false and an IEEE '/', in
+// the plain PyTorch version's operation order
+// (ops/kernels/score.py::score_hypotheses_plain), so every pair's
+// ex^2 + ey^2 is bit-identical to the plain version's on the card, and the
+// inlier counts match it exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PPT = 4;        // pixels per thread
-constexpr int HCHUNK = 256;   // hypotheses staged in shared memory at once
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int HPT = 2;                  // hypotheses per thread
+constexpr int HYPS = THREADS * HPT;     // hypotheses per block (grid.y)
+constexpr int TILE = 256;               // pixels staged at once
+constexpr int STAGE = TILE / THREADS;   // pixels a thread stages
 
+__device__ __forceinline__ float root_approx(float s) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(s));
+  return r;
+}
+
+// Block (bx, by) scores hypotheses [by*HYPS, (by+1)*HYPS) on pixels
+// [n*bx/gridDim.x, n*(bx+1)/gridDim.x).
 __global__ void __launch_bounds__(THREADS)
 score_kernel(const float* __restrict__ px, int64_t n, int64_t stride,
-             const float* __restrict__ hyps, int t, float tol,
+             const float* __restrict__ hyps, int t, float sstar,
              float* __restrict__ partial) {
-  __shared__ float sh[HCHUNK * 8];
-  __shared__ int s_cnt[WARPS][HCHUNK];
-  __shared__ float s_err[WARPS][HCHUNK];
+  // Per valid pixel, three float4: (x, y, ux, uy), (alpha, alpha_k,
+  // (-x)*y, 1 + x*x), (-(1 + y*y), x*y, -, -).
+  __shared__ float4 tile[3 * TILE];
+  __shared__ int s_valid[STAGE * WARPS];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  float x[PPT], y[PPT], ux[PPT], uy[PPT], al[PPT], ak[PPT];
-  bool ok[PPT];
-  const int64_t base = (int64_t)blockIdx.x * (THREADS * PPT);
+  // This thread's hypotheses: vx vy vz wx wy wz k, and c2 = 2/(2+k).
+  const int hbase = blockIdx.y * HYPS;
+  float q[HPT][8];
 #pragma unroll
-  for (int r = 0; r < PPT; ++r) {
-    const int64_t p = base + (int64_t)r * THREADS + tid;
-    if (p < n) {
-      x[r] = px[p];
-      y[r] = px[stride + p];
-      ux[r] = px[2 * stride + p];
-      uy[r] = px[3 * stride + p];
-      al[r] = px[4 * stride + p];
-      ak[r] = px[5 * stride + p];
-      ok[r] = px[6 * stride + p] > 0.5f;
-    } else {
-      x[r] = y[r] = ux[r] = uy[r] = al[r] = ak[r] = 0.0f;
-      ok[r] = false;
-    }
+  for (int j = 0; j < HPT; ++j) {
+    const int h = hbase + j * THREADS + tid;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) q[j][i] = h < t ? hyps[(int64_t)h * 8 + i] : 0.0f;
+    q[j][7] = 2.0f / (2.0f + q[j][6]);
+  }
+  // A warp whose first hypothesis is past t has none.
+  const bool live = hbase + warp * 32 < t;
+
+  int cnt[HPT];
+  float esum[HPT];
+#pragma unroll
+  for (int j = 0; j < HPT; ++j) {
+    cnt[j] = 0;
+    esum[j] = 0.0f;
   }
 
-  for (int h0 = 0; h0 < t; h0 += HCHUNK) {
-    const int hc = min(HCHUNK, t - h0);
-    __syncthreads();
-    for (int i = tid; i < hc * 8; i += THREADS) sh[i] = hyps[(int64_t)h0 * 8 + i];
+  const int64_t lo = n * blockIdx.x / gridDim.x;
+  const int64_t hi = n * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t p0 = lo; p0 < hi; p0 += TILE) {
+    // Stage the tile's valid pixels, in pixel order.
+    float f[STAGE][6];
+    bool ok[STAGE];
+    int pos[STAGE];
+#pragma unroll
+    for (int r = 0; r < STAGE; ++r) {
+      const int64_t p = p0 + r * THREADS + tid;
+      ok[r] = p < hi && px[6 * stride + p] > 0.5f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) f[r][i] = ok[r] ? px[i * stride + p] : 0.0f;
+      const unsigned m = __ballot_sync(0xffffffffu, ok[r]);
+      pos[r] = __popc(m & ((1u << lane) - 1u));
+      if (lane == 0) s_valid[r * WARPS + warp] = __popc(m);
+    }
+    __syncthreads();  // s_valid written; the previous tile consumed
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < STAGE * WARPS; ++i) {
+#pragma unroll
+      for (int r = 0; r < STAGE; ++r)
+        if (i == r * WARPS + warp) pos[r] += total;
+      total += s_valid[i];
+    }
+#pragma unroll
+    for (int r = 0; r < STAGE; ++r) {
+      if (!ok[r]) continue;
+      const float x = f[r][0], y = f[r][1];
+      tile[3 * pos[r]] = make_float4(x, y, f[r][2], f[r][3]);
+      tile[3 * pos[r] + 1] = make_float4(f[r][4], f[r][5], -x * y,
+                                         1.0f + x * x);
+      tile[3 * pos[r] + 2] = make_float4(-(1.0f + y * y), x * y, 0.0f, 0.0f);
+    }
     __syncthreads();
 
-    for (int h = 0; h < hc; ++h) {
-      const float* hp = sh + h * 8;
-      const float vx = hp[0], vy = hp[1], vz = hp[2];
-      const float wx = hp[3], wy = hp[4], wz = hp[5], k = hp[6];
-      const float c2 = 2.0f / (2.0f + k);
-      int cnt = 0;
-      float esum = 0.0f;
+    if (live) {
+      float tsum[HPT];
 #pragma unroll
-      for (int r = 0; r < PPT; ++r) {
-        const float xr = x[r], yr = y[r];
-        const float beta = (al[r] + k * ak[r]) * c2;
-        const float ax = vx - xr * vz;
-        const float ay = vy - yr * vz;
-        const float bx = -xr * yr * wx + (1.0f + xr * xr) * wy - yr * wz;
-        const float by = -(1.0f + yr * yr) * wx + xr * yr * wy + xr * wz;
-        const float gx = beta * ax;
-        const float gy = beta * ay;
-        const float rx = ux[r] - beta * bx;
-        const float ry = uy[r] - beta * by;
-        const float gg = gx * gx + gy * gy;
-        const float gr = gx * rx + gy * ry;
-        const float rho = (gg == 0.0f) ? 0.0f : gr / gg;
-        const float ex = ux[r] - beta * (ax * rho + bx);
-        const float ey = uy[r] - beta * (ay * rho + by);
-        const float err = sqrtf(ex * ex + ey * ey);
-        if (err < tol && ok[r]) {
-          cnt += 1;
-          esum += err;
+      for (int j = 0; j < HPT; ++j) tsum[j] = 0.0f;
+#pragma unroll 2
+      for (int i = 0; i < total; ++i) {
+        const float4 a = tile[3 * i];
+        const float4 b = tile[3 * i + 1];
+        const float4 c = tile[3 * i + 2];
+#pragma unroll
+        for (int j = 0; j < HPT; ++j) {
+          const float* h = q[j];
+          const float beta = (b.x + h[6] * b.y) * h[7];
+          const float ax = h[0] - a.x * h[2];
+          const float ay = h[1] - a.y * h[2];
+          const float bx = b.z * h[3] + b.w * h[4] - a.y * h[5];
+          const float by = c.x * h[3] + c.y * h[4] + a.x * h[5];
+          const float gx = beta * ax;
+          const float gy = beta * ay;
+          const float rx = a.z - beta * bx;
+          const float ry = a.w - beta * by;
+          const float gg = gx * gx + gy * gy;
+          const float gr = gx * rx + gy * ry;
+          // The plain version's where(gg == 0, 0, gr / where(gg == 0, 1,
+          // gg)): a select on each side of the division, no branch.
+          const bool zero = gg == 0.0f;
+          const float quot = gr / (zero ? 1.0f : gg);
+          const float rho = zero ? 0.0f : quot;
+          const float ex = a.z - beta * (ax * rho + bx);
+          const float ey = a.w - beta * (ay * rho + by);
+          const float s = ex * ex + ey * ey;
+          if (s < sstar) {  // predicated: a count, a root and an add
+            cnt[j] += 1;
+            tsum[j] += root_approx(s);
+          }
         }
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-        esum += __shfl_down_sync(0xffffffffu, esum, off);
-      }
-      if (lane == 0) {
-        s_cnt[warp][h] = cnt;
-        s_err[warp][h] = esum;
-      }
+      for (int j = 0; j < HPT; ++j) esum[j] += tsum[j];
     }
-    __syncthreads();
-    for (int h = tid; h < hc; h += THREADS) {
-      int c = 0;
-      float e = 0.0f;
+  }
+
+  float* out = partial + (int64_t)blockIdx.x * 2 * t;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        c += s_cnt[w][h];
-        e += s_err[w][h];
-      }
-      float* out = partial + (int64_t)blockIdx.x * 2 * t;
-      out[h0 + h] = (float)c;
-      out[t + h0 + h] = e;
+  for (int j = 0; j < HPT; ++j) {
+    const int h = hbase + j * THREADS + tid;
+    if (h < t) {
+      out[h] = (float)cnt[j];
+      out[t + h] = esum[j];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int score_pixels_per_block() { return THREADS * PPT; }
+// Pixel blocks of the grid for n pixels and t hypotheses on the current
+// device: as many as fit on it at once with ceil(t / 256) hypothesis
+// groups, and no more than there are pixel tiles; -1 on error.
+extern "C" int score_blocks(long long n, int t) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_kernel,
+                                                       THREADS, 0)
+             != cudaSuccess)
+    return -1;
+  const long long groups = (t + HYPS - 1) / HYPS;
+  const long long tiles = std::max(1LL, (n + TILE - 1) / TILE);
+  const long long fit = std::max(1LL, (long long)sms * std::max(per_sm, 1)
+                                          / std::max(groups, 1LL));
+  return (int)std::min(tiles, fit);
+}
 
-// px: (8, stride) f32, first n columns used; hyps: (t, 8) f32;
-// partial: (blocks, 2, t) f32 with blocks = ceil(n / score_pixels_per_block()).
+// px: (8, stride) f32, first n columns used; hyps: (t, 8) f32; sstar: the
+// squared tolerance of sq_threshold; partial: (blocks, 2, t) f32 with
+// blocks from score_blocks(n, t).
 extern "C" int score_launch(const float* px, long long n, long long stride,
-                            const float* hyps, int t, float tol,
+                            const float* hyps, int t, float sstar,
                             float* partial, int blocks, void* stream) {
-  score_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      px, (int64_t)n, (int64_t)stride, hyps, t, tol, partial);
+  const dim3 grid(blocks, (t + HYPS - 1) / HYPS);
+  score_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      px, (int64_t)n, (int64_t)stride, hyps, t, sstar, partial);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,9 @@
 // updated, and a read beyond the copied region (only ever from that ring or
 // at the true image edge) takes the cell itself: Neumann at the image edge.
 // Launches read one (u, v) buffer and write another, since a block's halo
-// is its neighbours' interior.  A plane whose whole copy fits in one
+// is its neighbours' interior.  The first launch reads u and v where the
+// caller has them, with a column stride of 1 (planes) or 2 (the halves of
+// an (H, W, 2) flow, as the flow's median writes it).  A plane whose whole copy fits in one
 // block's shared memory runs all its sweeps in one launch with no halo.
 // The tile plan (tile size, K, halo) comes from the wrapper
 // (ops/kernels/sor.py::tile_plan).
@@ -137,7 +139,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
                 const float* __restrict__ v_in, float* __restrict__ u_out,
                 float* __restrict__ v_out, Tiling tl, int sweeps,
-                SorParams prm) {
+                SorParams prm, int in_cs) {
   extern __shared__ float smem[];
   const int h = tl.h, w = tl.w;
   const int ty0 = blockIdx.y * tl.tile_h, tx0 = blockIdx.x * tl.tile_w;
@@ -162,8 +164,8 @@ sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         copy4_async(smem + at(k, ly, lx), coef + k * n + g);
-      copy4_async(smem + at(8, ly, lx), u_in + g);
-      copy4_async(smem + at(9, ly, lx), v_in + g);
+      copy4_async(smem + at(8, ly, lx), u_in + g * in_cs);
+      copy4_async(smem + at(9, ly, lx), v_in + g * in_cs);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::);
@@ -203,7 +205,8 @@ sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
 
 }  // namespace
 
-// coef: (8, h, w) f32; u_in, v_in: (h, w) f32, read only.  Runs `iters`
+// coef: (8, h, w) f32; u_in, v_in: (h, w) f32 with column stride in_cs
+// (1 or 2) and row stride in_cs * w, read only.  Runs `iters`
 // sweeps in ceil(iters / sweeps) launches of `sweeps` sweeps each (the last
 // may run fewer) over tiles of tile_h x tile_w with the given halo; the
 // result lands in (u_out, v_out).  (u_tmp, v_tmp) is the other buffer of
@@ -211,13 +214,14 @@ sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
 // number of launches in *launches and a cudaError_t.
 extern "C" int sor_launch(const float* coef, const float* u_in,
                           const float* v_in, float* u_out, float* v_out,
-                          float* u_tmp, float* v_tmp, int h, int w, int iters,
-                          int tile_h, int tile_w, int halo, int sweeps,
+                          float* u_tmp, float* v_tmp, int in_cs, int h, int w,
+                          int iters, int tile_h, int tile_w, int halo,
+                          int sweeps,
                           float omega, float lam, float eps2, float wbr,
                           float wgrad, int* launches, void* stream) {
   *launches = 0;
   if (h <= 0 || w <= 0 || iters <= 0) return 0;
-  if (tile_h <= 0 || tile_w <= 0 || sweeps <= 0 || halo < 0)
+  if (tile_h <= 0 || tile_w <= 0 || sweeps <= 0 || halo < 0 || in_cs < 1)
     return (int)cudaErrorInvalidValue;
   const SorParams prm{omega, lam, eps2, wbr, wgrad};
   Tiling tl;
@@ -247,7 +251,7 @@ extern "C" int sor_launch(const float* coef, const float* u_in,
     float* vd = to_out ? v_out : v_tmp;
     const int s = std::min(sweeps, iters - l * sweeps);
     sor_tile_kernel<<<grid, dim3(bx, by), smem, (cudaStream_t)stream>>>(
-        coef, us, vs, ud, vd, tl, s, prm);
+        coef, us, vs, ud, vd, tl, s, prm, l == 0 ? in_cs : 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;

@@ -158,10 +158,11 @@ def _local_contrast_norm(x, eps: float):
     return d * torch.rsqrt(var + eps * eps)
 
 
-def _median_flow(flow):
-    """3x3 median of both planes of an (H, W, 2) flow."""
-    planes = flow.permute(2, 0, 1).contiguous()
-    return kmedian.median3_planes(planes).permute(1, 2, 0)
+def _median_flow(u, v):
+    """3x3 median of a flow's planes u, v (H, W), read where they lie (the
+    two planes of an (H, W, 2) flow, or SOR's u and v): a contiguous
+    (H, W, 2) flow."""
+    return kmedian.median3_flow(u, v)
 
 
 def _box5(x):
@@ -264,7 +265,7 @@ def _coarse_init(i1, i2, radius: int, cfg):
         cost_chunks(), lambda k: offs[k], (h, w), i1m.dtype, i1m.device,
         ratio=cfg.match_ratio,
         fallback=torch.zeros((h, w, 2), dtype=i1m.dtype, device=i1m.device))
-    return _median_flow(best), second, amb
+    return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
 def _discrete_refine(i1, i2, flow, radius: int, cfg):
@@ -290,7 +291,7 @@ def _discrete_refine(i1, i2, flow, radius: int, cfg):
     best, second, amb = _match_scan(
         cost_chunks(), cand_of, (h, w), i1m.dtype, i1m.device,
         ratio=cfg.match_ratio, fallback=flow)
-    return _median_flow(best), second, amb
+    return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
 def _sor(coef, u, v, iters: int, cfg):
@@ -317,9 +318,8 @@ def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True):
             i2w = i2w * torch.clamp((b1 + 1e-2) / (b2 + 1e-2), 0.7, 1.4)
         coef = linearize(i1, i2w, flow, g1)
         u, v = _sor(coef, flow[..., 0], flow[..., 1], iters, cfg)
-        flow = torch.stack([u, v], dim=-1)
-        if cfg.median:
-            flow = _median_flow(flow)
+        flow = (_median_flow(u, v) if cfg.median
+                else torch.stack([u, v], dim=-1))
     return flow
 
 

@@ -11,7 +11,9 @@ as it is, since padded pixels carry valid = 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from rs_sfm_tpu_torch.ops.kernels import _build
@@ -26,19 +28,10 @@ def _fields(px):
 _PLAIN_CHUNK = 16
 
 
-def score_hypotheses_plain(px, hyps, tol: float):
-    """Plain PyTorch version of the scoring kernel, same operation order.
-
-    Args:
-      px: (8, N) float32 packed pixel fields; hyps: (T, 8) float32.
-      tol: inlier tolerance on the residual norm.
-
-    Returns:
-      (num_inliers (T,) float32, inlier_error (T,) float32).
-    """
-    x, y, ux, uy, alpha, alpha_k, valid = _fields(px)
-    ok = valid > 0.5
-    nums, errs = [], []
+def squared_residuals_plain(px, hyps):
+    """The squared residual norms ex^2 + ey^2 of the plain version, in its
+    operations: one (chunk, N) float32 tensor per chunk of hypotheses."""
+    x, y, ux, uy, alpha, alpha_k, _ = _fields(px)
     for h0 in range(0, hyps.shape[0], _PLAIN_CHUNK):
         hc = hyps[h0:h0 + _PLAIN_CHUNK]
         vx, vy, vz, wx, wy, wz, k = (hc[:, i:i + 1] for i in range(7))
@@ -57,11 +50,51 @@ def score_hypotheses_plain(px, hyps, tol: float):
         rho = torch.where(zero, 0.0, gr / torch.where(zero, 1.0, gg))
         ex = ux - beta * (ax * rho + bx)
         ey = uy - beta * (ay * rho + by)
-        err = torch.sqrt(ex * ex + ey * ey)
+        yield ex * ex + ey * ey
+
+
+def score_hypotheses_plain(px, hyps, tol: float):
+    """Plain PyTorch version of the scoring kernel, same operation order.
+
+    Args:
+      px: (8, N) float32 packed pixel fields; hyps: (T, 8) float32.
+      tol: inlier tolerance on the residual norm.
+
+    Returns:
+      (num_inliers (T,) float32, inlier_error (T,) float32).
+    """
+    ok = px[6:7, :] > 0.5
+    nums, errs = [], []
+    for sq in squared_residuals_plain(px, hyps):
+        err = torch.sqrt(sq)
         inl = (err < tol) & ok
         nums.append(inl.sum(dim=1).to(torch.float32))
         errs.append(torch.where(inl, err, 0.0).sum(dim=1))
     return torch.cat(nums), torch.cat(errs)
+
+
+@functools.lru_cache(maxsize=64)
+def sq_threshold(tol: float) -> float:
+    """s*: the least float32 s with sqrt_rn(s) >= float32(tol).
+
+    sqrt_rn (IEEE, correctly rounded) is monotone, so for a float32
+    s = ex^2 + ey^2 the plain version's test sqrt(s) < tol holds exactly
+    when s < s*; the kernel tests that.  Found by bisection over the
+    float32 bit patterns of [+0, +inf] with numpy's correctly rounded
+    float32 square root (PyTorch's on the CPU is not).  A tol that is not
+    positive (or NaN) gives 0: no s is below it, as no root is below tol.
+    """
+    tol32 = np.float32(tol)
+    if not tol32 > 0:
+        return 0.0
+    lo, hi = 0, int(np.float32(np.inf).view(np.uint32))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.sqrt(np.uint32(mid).view(np.float32)) >= tol32:
+            hi = mid
+        else:
+            lo = mid + 1
+    return float(np.uint32(lo).view(np.float32))
 
 
 def _lib():
@@ -72,9 +105,22 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p]
         lib.score_launch.restype = ctypes.c_int
-        lib.score_pixels_per_block.restype = ctypes.c_int
+        lib.score_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.score_blocks.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks(device_index: int, n: int, t: int) -> int:
+    """Pixel blocks of the grid that csrc/score.cu sizes for n pixels and
+    t hypotheses on this device."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        blocks = lib.score_blocks(n, t)
+    if blocks <= 0:
+        raise RuntimeError("score_blocks: CUDA error")
+    return blocks
 
 
 def _check_inputs(px, hyps):
@@ -95,7 +141,8 @@ def score_hypotheses(px, hyps, tol: float):
     """Score all hypotheses against all pixels.
 
     On CUDA tensors this launches the kernel of csrc/score.cu (and counts
-    the launch in `score_hypotheses.launches`); on CPU tensors it runs
+    the launch in `score_hypotheses.launches`), which tests the squared
+    residual against `sq_threshold(tol)`; on CPU tensors it runs
     `score_hypotheses_plain`.
 
     Returns:
@@ -109,13 +156,13 @@ def score_hypotheses(px, hyps, tol: float):
     lib = _lib()
     n = px.shape[1]
     t = hyps.shape[0]
-    blocks = max(1, -(-n // lib.score_pixels_per_block()))
+    blocks = _blocks(px.device.index, n, t)
     with torch.cuda.device(px.device):
         partial = torch.empty((blocks, 2, t), dtype=torch.float32,
                               device=px.device)
         stream = torch.cuda.current_stream(px.device).cuda_stream
         _build.check(lib.score_launch(
-            px.data_ptr(), n, n, hyps.data_ptr(), t, float(tol),
+            px.data_ptr(), n, n, hyps.data_ptr(), t, sq_threshold(tol),
             partial.data_ptr(), blocks, stream), "score_launch")
     score_hypotheses.launches += 1
     sums = partial.sum(dim=0)

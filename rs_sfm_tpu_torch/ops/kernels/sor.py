@@ -151,22 +151,42 @@ def launches_per_call(h: int, w: int, iters: int, limits=H100_LIMITS) -> int:
 def sor_launch(coef, u, v, u_out, v_out, plan, *, iters: int, omega: float,
                lam: float, eps2: float, wbr: float, wgrad: float) -> int:
     """`iters` sweeps of csrc/sor.cu on (tile_h, tile_w, halo, sweeps) =
-    `plan`, from contiguous CUDA (coef, u, v) into (u_out, v_out); returns
-    the launches it made (not counted in `sor_sweeps.launches`)."""
+    `plan`, from CUDA (coef, u, v) into contiguous (u_out, v_out); coef is
+    contiguous, u and v as `read_stride` takes them.  Returns the launches
+    it made (not counted in `sor_sweeps.launches`)."""
     h, w = u.shape
+    cs = read_stride(u, v)
+    if cs is None:
+        raise ValueError(f"u {u.stride()} and v {v.stride()}: no column "
+                         f"stride of 1 or 2")
     two = -(-iters // plan[3]) > 1
-    u_tmp = torch.empty_like(u) if two else u_out
-    v_tmp = torch.empty_like(v) if two else v_out
+    u_tmp = torch.empty_like(u_out) if two else u_out
+    v_tmp = torch.empty_like(v_out) if two else v_out
     launches = ctypes.c_int(0)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = _lib().sor_launch(
             coef.data_ptr(), u.data_ptr(), v.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(), h, w,
+            v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(), cs, h, w,
             iters, *plan, omega, lam, eps2, wbr, wgrad,
             ctypes.byref(launches), stream)
     _build.check(err, "sor_launch")
     return launches.value
+
+
+def read_stride(u, v):
+    """The column stride (1 or 2) at which the kernel reads the (H, W)
+    planes u and v where they lie -- contiguous planes, or the halves of an
+    (H, W, 2) flow -- or None.  The stride of a dimension of size 1 is
+    never used."""
+    h, w = u.shape
+    if v.shape != u.shape:
+        return None
+    for cs in (1, 2):
+        if all((t.stride(1) == cs or w == 1) and (t.stride(0) == cs * w
+                                                  or h == 1) for t in (u, v)):
+            return cs
+    return None
 
 
 def _lib():
@@ -174,7 +194,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sor_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   f, f, f, f, f, p, p]
+                                   i, f, f, f, f, f, p, p]
         lib.sor_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -187,8 +207,9 @@ def sor_sweeps(coef, u, v, *, iters: int, omega: float, lam: float,
     coef (8, H, W), u, v (H, W), all float32.  On CUDA tensors this runs
     the kernel of csrc/sor.cu on the plan of `tile_plan` for its card:
     `launches_per_call(H, W, iters, card_limits(device))` launches, each
-    counted in `sor_sweeps.launches`.  On CPU tensors it runs
-    `sor_sweeps_plain`.
+    counted in `sor_sweeps.launches`; u and v are read where they lie when
+    `read_stride` takes them (the halves of an (H, W, 2) flow included).
+    On CPU tensors it runs `sor_sweeps_plain`.
 
     Returns the new (u, v); the inputs are not modified.
     """
@@ -208,10 +229,14 @@ def sor_sweeps(coef, u, v, *, iters: int, omega: float, lam: float,
         return sor_sweeps_plain(coef, u, v, **params)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    coef, u, v = coef.contiguous(), u.contiguous(), v.contiguous()
+    coef = coef.contiguous()
+    if read_stride(u, v) is None:
+        u, v = u.contiguous(), v.contiguous()
     if iters <= 0:
-        return u.clone(), v.clone()
-    u_out, v_out = torch.empty_like(u), torch.empty_like(v)
+        return (u.clone(memory_format=torch.contiguous_format),
+                v.clone(memory_format=torch.contiguous_format))
+    u_out = torch.empty((h, w), dtype=torch.float32, device=u.device)
+    v_out = torch.empty_like(u_out)
     plan = tile_plan(h, w, iters, card_limits(u.device))
     sor_sweeps.launches += sor_launch(coef, u, v, u_out, v_out, plan,
                                       **params)

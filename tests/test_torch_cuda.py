@@ -9,8 +9,10 @@ also runs on a machine without them:
 (`--noconftest`: tests/conftest.py configures JAX).
 
 Tolerances: B1 counts exactly equal (the kernel and the plain version
-evaluate every pixel's error in the same IEEE operations, see
-csrc/score.cu), error sums rtol 1e-5 (summation order).  B2/B3 state rtol
+evaluate every pixel's squared error in the same IEEE operations, and the
+kernel's test against s* is the plain sqrt(s) < tol, see csrc/score.cu),
+error sums rtol 1e-5 (summation order and the kernel's approximate
+root).  B2/B3 state rtol
 1e-5, atol 1e-7, with each sum slot also allowed 1e-5 of its
 Cauchy-Schwarz bound (tests/test_torch_refine.py explains both), compared
 at unit damping.  B4 warp, B5 SOR and B6 median are bit-exact: each kernel
@@ -84,6 +86,62 @@ def test_score_kernel_matches_plain(cuda_device, n, t):
     np.testing.assert_array_equal(num_k.cpu().numpy(), num_p.cpu().numpy())
     np.testing.assert_allclose(err_k.cpu().numpy(), err_p.cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+def _hit(target):
+    """(ux, uy) float32 with ux*ux + uy*uy == target in float32 (each
+    operation rounded, no FMA), found near (sqrt(target), 0)."""
+    f32 = np.float32
+    base = np.sqrt(f32(target)).view(np.uint32).astype(np.int64)
+    for dx in range(-8, 9):
+        ux = np.uint32(base + dx).view(f32)
+        rest = f32(target) - ux * ux
+        if rest < 0:
+            continue
+        root = np.sqrt(rest).view(np.uint32).astype(np.int64)
+        for dy in range(-4, 5):
+            uy = np.uint32(max(root + dy, 0)).view(f32)
+            if ux * ux + uy * uy == f32(target):
+                return ux, uy
+    raise AssertionError(f"no (ux, uy) for {target}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 7, 256, 300])
+def test_score_kernel_counts_at_the_threshold(cuda_device, t):
+    """Counts equal to the plain version where the squared residual lies at
+    s* (csrc/score.cu's test s < s*) or 1 ulp either side.  Hypothesis 0 is
+    zero motion, whose residual is the flow itself: 30 valid pixels carry
+    flows with ux^2 + uy^2 exactly s* - 1 ulp, s* and s* + 1 ulp.  The
+    tolerance is the root of hypothesis 1's median squared residual, so its
+    pixels at that median lie on the threshold too.  N = 5003 leaves a
+    ragged last tile; T = 300 spans two hypothesis groups."""
+    n = 5003
+    p = _score_problem(n, t, seed=t)
+    p["v"][0] = 0.0
+    p["w"][0] = 0.0
+    p["k"][0] = 0.0
+    px = tscore.pack_pixels(p["coords"], p["flow"], p["alpha"], p["alpha_k"],
+                            p["valid"]).to(cuda_device)
+    hy = tscore.pack_hyps(p["v"], p["w"], p["k"]).to(cuda_device)
+    h = min(1, t - 1)
+    sq = next(tscore.squared_residuals_plain(px, hy[h:h + 1]))[0]
+    tol = float(np.sqrt(np.float32(sq[px[6] > 0.5].median().item())))
+    sstar = np.float32(tscore.sq_threshold(tol))
+    bits = sstar.view(np.uint32)
+    for i in range(30):
+        target = np.uint32(bits + (i % 3) - 1).view(np.float32)
+        px[2, i], px[3, i] = (float(a) for a in _hit(target))
+        px[6, i] = 1.0
+    s0 = next(tscore.squared_residuals_plain(px, hy[:1]))[0, :30].cpu()
+    assert [int(np.float32(a).view(np.uint32)) - int(bits)
+            for a in s0.numpy()] == [-1, 0, 1] * 10
+    num_k, err_k = tscore.score_hypotheses(px, hy, tol)
+    num_p, err_p = tscore.score_hypotheses_plain(px, hy, tol)
+    np.testing.assert_array_equal(num_k.cpu().numpy(), num_p.cpu().numpy())
+    np.testing.assert_allclose(err_k.cpu().numpy(), err_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert 0 < num_k[h] < n
 
 
 def _lm_problem(j, n=4096, seed=8):
@@ -278,12 +336,61 @@ def test_median_kernel_matches_plain(cuda_device, h, w):
     assert torch.equal(got, tmedian.median3_plain(x))
 
 
+def _pyramid_shapes():
+    """Every level of the e2e flow's forward (full HD) and half-resolution
+    backward pyramids, and the two smallest planes."""
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET as cfg
+    from rs_sfm_tpu_torch.flow.dense import pyramid_levels
+
+    shapes = [(1, 1), (2, 3)]
+    for h, w in ((1080, 1920), (540, 960)):
+        for _ in range(pyramid_levels(h, w, cfg.levels)):
+            shapes.append((h, w))
+            h, w = (h + 1) // 2, (w + 1) // 2
+    return sorted(set(shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", _pyramid_shapes())
+def test_median_kernel_layouts_bit_exact(cuda_device, h, w):
+    """B6 bit for bit (signed zeros included) to median3_plain in every
+    layout: (P, H, W) planes for P = 1, 2, 3; a flow's median from two
+    separate planes and from the halves of an (H, W, 2) flow, into a
+    contiguous (H, W, 2) flow.  The data has ties and zeros of both
+    signs."""
+    rng = np.random.default_rng(h * 7 + w)
+    x = rng.normal(size=(3, h, w)).astype(np.float32)
+    x[:, ::2, ::3] = 0.0
+    x[:, 1::2, ::3] = -0.0
+    x[0, :, 1::4] = 0.5
+    planes = torch.from_numpy(x).to(cuda_device)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    for p in (1, 2, 3):
+        got = tmedian.median3_planes(planes[:p])
+        assert torch.equal(bits(got), bits(tmedian.median3_plain(planes[:p])))
+    ref = tmedian.median3_plain(planes[:2]).permute(1, 2, 0)
+    flow = planes[:2].permute(1, 2, 0).contiguous()
+    u, v = planes[0].clone(), planes[1].clone()
+    for a, b in ((u, v), (flow[..., 0], flow[..., 1]),
+                 (planes[0], planes[1])):
+        before = tmedian.median3_planes.launches
+        got = tmedian.median3_flow(a, b)
+        torch.cuda.synchronize()
+        assert tmedian.median3_planes.launches == before + 1
+        assert got.shape == (h, w, 2) and got.is_contiguous()
+        assert torch.equal(bits(got), bits(ref))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [1, 7, 20])
 @pytest.mark.parametrize("h,w", FLOW_SHAPES)
 def test_sor_kernel_matches_plain(cuda_device, h, w, iters):
     """Coefficient planes of a real warp (gradients of a smooth image pair)
-    with a flow far from the solution, so the Charbonnier weights vary."""
+    with a flow far from the solution, so the Charbonnier weights vary; u
+    and v as planes and as the halves of an (H, W, 2) flow."""
     rng = np.random.default_rng(h + w)
     i1 = _smooth_plane(h, w, rng)
     i2 = np.roll(i1, (1, 2), (0, 1))
@@ -311,3 +418,8 @@ def test_sor_kernel_matches_plain(cuda_device, h, w, iters):
     u_p, v_p = tsor.sor_sweeps_plain(coef, u0, v0, **params)
     assert not torch.equal(u_p, u0)
     assert torch.equal(u_k, u_p) and torch.equal(v_k, v_p)
+    # The same from the halves of an (H, W, 2) flow, read where they lie.
+    flow = torch.stack([u0, v0], dim=-1)
+    assert tsor.read_stride(flow[..., 0], flow[..., 1]) == 2
+    u_f, v_f = tsor.sor_sweeps(coef, flow[..., 0], flow[..., 1], **params)
+    assert torch.equal(u_f, u_p) and torch.equal(v_f, v_p)

@@ -64,6 +64,56 @@ def test_median_plain_is_bit_exact_to_jax():
         got, np.asarray(jmedian_pallas(jnp.asarray(x), interpret=True)))
 
 
+def _median_data(h, w, seed):
+    """(2, h, w) float32 with ties and zeros of both signs."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, h, w)).astype(np.float32)
+    x[:, ::2, ::3] = 0.0
+    x[:, 1::2, ::3] = -0.0
+    x[0, :, 1::4] = 0.5
+    x[1, ::3, :] = np.round(x[1, ::3, :])
+    return x
+
+
+def _bits(t):
+    return t.contiguous().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (17, 30), (34, 60)])
+def test_median_flow_is_bit_exact_to_plain(h, w):
+    """The flow solver's median (`_median_flow` over median3_flow) reads
+    the planes where they lie -- two separate planes, or the halves of an
+    (H, W, 2) flow -- and returns a contiguous (H, W, 2) flow equal bit for
+    bit (signed zeros included) to median3_plain of the planes.  The
+    strides the CUDA launch would read the planes with address them."""
+    x = _median_data(h, w, seed=h * 1000 + w)
+    planes = torch.from_numpy(x)
+    ref = tmedian.median3_plain(planes).permute(1, 2, 0)
+    flow = planes.permute(1, 2, 0).contiguous()
+    for u, v, kind in ((planes[0], planes[1], "planes"),
+                       (planes[0].clone(), planes[1].clone(), "planes"),
+                       (flow[..., 0], flow[..., 1], "pair")):
+        got = tdense._median_flow(u, v)
+        assert got.shape == (h, w, 2) and got.is_contiguous()
+        np.testing.assert_array_equal(_bits(got), _bits(ref))
+        layout = tmedian._pair_layout(u, v)
+        assert layout[0] == kind or h * w == 1  # 1x1: either reads both
+        kind = layout[0]
+        if u.untyped_storage().data_ptr() != v.untyped_storage().data_ptr():
+            continue  # two buffers: the plane stride spans them
+        base = torch.tensor([], dtype=torch.float32).set_(
+            u.untyped_storage())
+        off = u.storage_offset()
+        if kind == "pair":
+            seen = base.as_strided((h, w, 2), (layout[1], 2, 1), off)
+        else:
+            seen = base.as_strided((2, h, w), (layout[1], layout[2], 1),
+                                   off).permute(1, 2, 0)
+        assert torch.equal(seen, torch.stack([u, v], dim=-1))
+    if w > 1:  # swapped halves have column stride 2: not readable as is
+        assert tmedian._pair_layout(flow[..., 1], flow[..., 0]) is None
+
+
 def test_warp_plain_is_bit_exact_to_jax():
     """Flows of up to +-w/2 px push samples off every edge; one plane by
     one field, by a batch of fields, and two planes by one field."""
@@ -165,9 +215,12 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
                         spy("sor_sweeps", tsor.sor_sweeps,
                             lambda a, kw: tsor.launches_per_call(
                                 *a[1].shape, kw["iters"])))
-    monkeypatch.setattr(tmedian, "median3_planes",
-                        spy("median3_planes", tmedian.median3_planes,
-                            lambda a, kw: 1))
+    # Both median entry points launch the one kernel that chip_smoke.py
+    # counts as median3_planes.
+    for fn in ("median3_planes", "median3_flow"):
+        monkeypatch.setattr(tmedian, fn, spy("median3_planes",
+                                             getattr(tmedian, fn),
+                                             lambda a, kw: 1))
     i1, i2, _ = fb_pair
     cfg = tconfig.E2E_FLOW_PRESET._replace(iters=2, warps_coarse=2,
                                            warp_engine=engine,

@@ -141,6 +141,20 @@ def test_wrapper_runs_plain_on_cpu_without_counting():
     np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())
 
 
+@pytest.mark.parametrize("tol", [1e-3, 0.02, 0.05, 3.0])
+def test_sq_threshold_is_exact(tol):
+    """The kernel's test s < s* equals the plain test sqrt(s) < tol (in
+    float32, with a correctly rounded root) for every float32 s within
+    4,096 ulps of s* and for a random sample of all finite s >= 0."""
+    sstar = np.float32(tscore.sq_threshold(tol))
+    tol32 = np.float32(tol)
+    near = sstar.view(np.uint32).astype(np.int64) + np.arange(-4096, 4097)
+    sample = np.random.default_rng(0).integers(0, 0x7F800000, size=200_000)
+    s = np.concatenate([near, sample]).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(s < sstar, np.sqrt(s) < tol32)
+    assert np.sqrt(sstar) >= tol32
+
+
 @pytest.mark.parametrize("bad", ["dtype", "rows", "hyp_cols", "noncontig"])
 def test_wrapper_rejects_bad_inputs(bad):
     px = torch.zeros((8, 64))

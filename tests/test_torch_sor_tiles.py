@@ -92,3 +92,20 @@ def test_other_tiles_match_plain(tile):
     up, vp = tsor.sor_sweeps_plain(coef, u0, v0, iters=9, **PARAMS)
     ue, ve = _emulate(coef, u0, v0, 9, plan)
     assert torch.equal(ue, up) and torch.equal(ve, vp)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 5), (6, 1), (17, 30)])
+def test_read_stride_of_flow_layouts(h, w):
+    """The first launch reads u and v where they lie: contiguous planes
+    at column stride 1, the halves of an (H, W, 2) flow (as the flow's
+    median writes it) at 2; the (W, H) transpose of a plane, or halves of
+    different strides, are copied first."""
+    planes = torch.zeros((2, h, w))
+    flow = torch.zeros((h, w, 2))
+    assert tsor.read_stride(planes[0], planes[1]) == 1
+    assert tsor.read_stride(flow[..., 0], flow[..., 1]) == (1 if h * w == 1
+                                                            else 2)
+    if h > 1 and w > 1:
+        assert tsor.read_stride(flow[..., 0], planes[1]) is None
+        square = torch.zeros((w, w))
+        assert tsor.read_stride(square.t(), square) is None
