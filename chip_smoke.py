@@ -19,32 +19,38 @@ and the script exits non-zero; nothing is caught and continued):
               ptxas usage, and B1's SASS instructions per pixel and
               hypothesis (cuobjdump -sass, ops/kernels/_sass.py)
   [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi (J = 4 and 1), B7
-              lm_sums_multi + lm_decide, B4 warp, B5 sor_sweeps, B6
-              median3_planes (and median3_flow from both flow layouts) vs
-              their plain versions at full-HD shapes (B7 also against B3,
-              bit for bit); median ms of 20 timed runs of each, of its
-              plain version and (B4) of F.grid_sample, and its bound; B1's
-              squared threshold s* and the pairs within 1 ulp of it; B5's
-              tile plans at every pyramid level ("*" marks
-              sor.tile_plan's choice; launches in parentheses)
+              lm_sums_multi + lm_decide, B4 warp and match_search, B5
+              sor_sweeps, B6 median3_planes (and median3_flow from both
+              flow layouts) vs their plain versions at full-HD shapes (B7
+              also against B3, bit for bit); median ms of 20 timed runs of
+              each, of its plain version and (B4's warp) of F.grid_sample,
+              and its bound; B1's squared threshold s* and the pairs within
+              1 ulp of it; B4's search at each of the e2e pass's discrete
+              searches, on every tile of csrc/match.cu ("*" marks
+              match.tile_plan's choice), and B5's tile plans at every
+              pyramid level ("*" marks sor.tile_plan's choice; launches in
+              parentheses)
   [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
               per-stage ms (CUDA events), peak memory, launch counts; the
-              hypotheses RANSAC picks on seed-1 draws
+              hypotheses RANSAC picks on seed-1 draws made on the card
   [5 parity]  the solver slice and the e2e path at 270x480 on the card
-              (kernels) vs on the CPU (plain versions), same RANSAC draws;
-              the hypotheses RANSAC picks on the card
+              (kernels) vs on the CPU (plain versions), same RANSAC draws
+              (handed to the card's runs on the card); the hypotheses
+              RANSAC picks on the card
   [6 e2e]     the main path at full HD: 1 warm-up and 3 timed passes,
               per-stage ms, host wall time, peak memory, launch counts of
-              all six kernels asserted against the configuration's (B5 at
+              all seven kernels asserted against the configuration's (B5 at
               most 330 a pass); then one pass under torch.profiler (device
-              kernels, busy share, device ms of B1-B6's kernels)
+              kernels, busy share, device ms of each kernel)
   [7 sharded] the estimation at full HD sharded over 2 ranks that share the
               one card over gloo (NCCL refuses two ranks on one device):
               both ranks' scalars bit-identical, and within gates of the
               unsharded pass on the same hypotheses; B7 launches per rank
   [8 rectify] B8 zbuffer_splat vs its plain version on the e2e pass's depth
-              map and poses (bit-exact), then the five engines, fill_cracks
-              and small_motion_warp at full HD; "pallas" equals "scatter"
+              map and poses (bit-exact), its min stage against one
+              scatter_reduce_ "amin" of its packed keys, then the five
+              engines, fill_cracks and small_motion_warp at full HD;
+              "pallas" equals "scatter"
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -84,13 +90,20 @@ PEAK_F32_OPS_PER_S = 67e12
 # hoisted, the inlier's root and sum included) and per valid pixel (its 8
 # hoisted operations), per pixel and start (lm_iter.cu, its header's
 # count), per output pixel (warp.cu), per pixel and sweep (sor.cu), per
-# pixel and plane (median.cu: 19 comparators, min and max).
+# pixel and plane (median.cu: 19 comparators, min and max), per
+# (candidate, pixel) of a discrete search (match.cu, one per float add,
+# multiply, min, max, floor, compare or select: the refine's candidate and
+# bilinear sample 23, the coarse's read none; the difference and square 2;
+# the box's 8 adds; the scan 17, and the refine's candidate add 1; the
+# halo's recomputed cells not counted).
 OPS_SCORE = 45
 OPS_SCORE_PIXEL = 8
 OPS_LM = 250
 OPS_WARP = 21
 OPS_SOR = 92
 OPS_MEDIAN = 38
+OPS_MATCH_REFINE = 51
+OPS_MATCH_COARSE = 27
 # Per source pixel (zbuffer.cu): two adds and floors, four bound compares,
 # the target index and one 64-bit atomic min.
 OPS_ZBUFFER = 10
@@ -100,6 +113,7 @@ KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "lm_iter": ("lm_iter", "refine_kernels.py:503"),
     "lm_iter_multi": ("lm_iter", "refine_kernels.py:451"),
     "warp": ("warp", "warp.py:96"),
+    "match_search": ("match", "warp.py:96"),
     "sor_sweeps": ("sor", "sor.py:158"),
     "median3_planes": ("median", "median.py:72"),
     "lm_sums_multi": ("lm_iter", "refine_kernels.py:592"),
@@ -198,6 +212,7 @@ def record(err, ms, plain_ms, nbytes, ops, library_ms=None):
 
 def wrappers():
     """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from rs_sfm_tpu_torch.ops.kernels import match as kma
     from rs_sfm_tpu_torch.ops.kernels import median as km
     from rs_sfm_tpu_torch.ops.kernels import refine_kernels as rk
     from rs_sfm_tpu_torch.ops.kernels import score as sk
@@ -207,7 +222,7 @@ def wrappers():
 
     return {"score_hypotheses": sk.score_hypotheses, "lm_iter": rk.lm_iter,
             "lm_iter_multi": rk.lm_iter_multi, "warp": kw.warp,
-            "sor_sweeps": ks.sor_sweeps,
+            "match_search": kma.match_search, "sor_sweeps": ks.sor_sweeps,
             "median3_planes": km.median3_planes,
             "lm_sums_multi": rk.lm_sums_multi, "lm_decide": rk.lm_decide,
             "zbuffer_splat": kz.zbuffer_splat}
@@ -221,17 +236,19 @@ def reset_counts():
 
 
 def _dense_launches(cfg, h, w, limits):
-    """(warp, SOR, median) kernel launches of one dense_flow_aux call on a
-    card of `limits` (sor.card_limits)."""
-    from rs_sfm_tpu_torch.flow.dense import _chunks, pyramid_levels
+    """(warp, search, SOR, median) kernel launches of one dense_flow_aux
+    call on a card of `limits` (sor.card_limits)."""
+    from rs_sfm_tpu_torch.flow.dense import pyramid_levels
     from rs_sfm_tpu_torch.ops.kernels.sor import launches_per_call
 
     shapes = [(h, w)]
     for _ in range(pyramid_levels(h, w, cfg.levels) - 1):
         shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
-    warp = sor = med = 0
+    warp = search = sor = med = 0
     if cfg.init_search_radius > 0:
-        med += 1  # the coarse search's median clean-up
+        # The coarse search, then its median clean-up.
+        search += 1
+        med += 1
     for lvl, (hh, ww) in enumerate(shapes):
         if lvl != 0:
             radius = (cfg.refine_search_radius
@@ -239,9 +256,8 @@ def _dense_launches(cfg, h, w, limits):
                           and min(hh, ww) <= cfg.refine_max_size)
                       else cfg.refine_fine_radius)
             if radius > 0:
-                # One warp launch per chunk of candidate flows, then the
-                # median clean-up.
-                warp += len(_chunks((2 * radius + 1) ** 2, hh, ww))
+                # The warp-local search, then its median clean-up.
+                search += 1
                 med += 1
         finest = lvl == 0
         warps = (cfg.warps if finest or cfg.warps_coarse <= 0
@@ -251,7 +267,7 @@ def _dense_launches(cfg, h, w, limits):
         warp += warps
         sor += warps * launches_per_call(hh, ww, iters, limits)
         med += warps if cfg.median else 0
-    return warp, sor, med
+    return warp, search, sor, med
 
 
 def flow_launches(cfg, h, w, limits=None):
@@ -268,8 +284,8 @@ def flow_launches(cfg, h, w, limits=None):
     bwd = (_dense_launches(cfg, bh, bw, limits) if cfg.backward_scale > 1
            else fw)
     return {"warp": fw[0] + bwd[0] + 1 + (cfg.occ_photo > 0.0),
-            "sor_sweeps": fw[1] + bwd[1],
-            "median3_planes": fw[2] + bwd[2]}
+            "match_search": fw[1] + bwd[1], "sor_sweeps": fw[2] + bwd[2],
+            "median3_planes": fw[3] + bwd[3]}
 
 
 def estimation_launches(cfg):
@@ -653,6 +669,107 @@ def check_sor_plans(coef, u0, v0, prm):
               + ", ".join(timings), flush=True)
 
 
+def e2e_searches(i1, i2):
+    """The arguments of every match_search call of one e2e flow pass on
+    (i1, i2), in call order (the pass's launches are not counted: the
+    counts are reset before phase 6)."""
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.ops.kernels import match as km
+
+    calls = []
+    search = km.match_search
+
+    def recorded(*args):
+        calls.append(args)
+        return search(*args)
+
+    # The wrapper counts on the module's match_search, this one meanwhile.
+    recorded.launches = 0
+    km.match_search = recorded
+    try:
+        flow_forward_backward(i1, i2, E2E_FLOW_PRESET)
+    finally:
+        km.match_search = search
+    return calls
+
+
+def same_bits(a, b):
+    """Bit-identical tensors (signed zeros and NaN payloads included)."""
+    import torch
+
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_searches(i1, i2):
+    """B4's search kernel at each discrete search of the e2e pass: every
+    tile of csrc/match.cu bit-exact to the plain version, each timed;
+    returns match_search's record, summed over the pass's searches (ms,
+    plain ms and bound of the 9 calls)."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import match as km
+    from rs_sfm_tpu_torch.ops.kernels.sor import card_limits
+
+    limits = card_limits(i1.device)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    shapes, worst, by = [], 0.0, set()
+    for i1m, i2m, flow, radius, ratio, fb in e2e_searches(i1, i2):
+        args = (i1m, i2m, flow, radius, ratio, fb)
+        h, w = i1m.shape
+        mode = "coarse" if flow is None else "refine"
+        got = km.match_search(*args)
+        ref = km.match_search_plain(*args)
+        torch.cuda.synchronize()
+        check(all(same_bits(g, r) for g, r in zip(got, ref)),
+              f"match_search {h}x{w} {mode} bit-exact to plain")
+        worst = max(worst, float(torch.max(torch.abs(got[0] - ref[0]))))
+        chosen = km.tile_plan(h, w, radius, limits)
+        plans = []
+        for tile in range(len(km.TILES)):
+            if km.smem_bytes(tile, radius) > limits[1]:
+                continue
+            res = km.match_launch(*args, tile)
+            torch.cuda.synchronize()
+            check(all(same_bits(g, r) for g, r in zip(res, ref)),
+                  f"match_search {h}x{w} {mode} tile {tile} bit-exact")
+            plans.append((tile, time_ms(
+                lambda tile=tile: km.match_launch(*args, tile))))
+        ms = time_ms(lambda: km.match_search(*args))
+        plain_ms = time_ms(lambda: km.match_search_plain(*args), runs=5,
+                           warmup=1)
+        n, k = h * w, (2 * radius + 1) ** 2
+        nbytes = n * (4 + 4 + (8 if flow is not None else 0)
+                      + (8 if ratio > 0.0 and fb is not None else 0)
+                      + 8 + 8 + 1)
+        ops = (OPS_MATCH_REFINE if flow is not None
+               else OPS_MATCH_COARSE) * k * n
+        b_ms, b_by = bound(nbytes, ops)
+        by.add(b_by)
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        shapes.append({"shape": [h, w], "mode": mode, "candidates": k,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "tiles": {"%dx%d" % km.TILES[t]: t_ms
+                                 for t, t_ms in plans}})
+        print(f"[3 kernels] B4 match_search {h}x{w} {mode} K={k}: bit-exact "
+              f"to plain on every tile; {ms:.4f} ms vs plain {plain_ms:.2f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}); tiles "
+              + ", ".join("%dx%d" % km.TILES[t] + ("*" if t == chosen else "")
+                          + f" {t_ms:.4f}" for t, t_ms in plans), flush=True)
+    check(len(shapes) > 0, "the e2e pass ran discrete searches")
+    rec = {"max_abs_err": worst, **total,
+           "bound_by": "operations" if "operations" in by else "bytes",
+           "library_ms": None, "searches": shapes}
+    print(f"[3 kernels] B4 match_search, the pass's {len(shapes)} searches: "
+          f"{total['ms']:.4f} ms vs plain {total['plain_ms']:.1f} ms, bound "
+          f"{total['bound_ms']:.4f} ms", flush=True)
+    return rec
+
+
 def phase_flow_kernels(dev):
     """B4-B6 at full-HD shapes of the e2e path; returns {kernel: record}."""
     import torch
@@ -695,6 +812,8 @@ def phase_flow_kernels(dev):
           f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, grid_sample "
           f"{r['library_ms']:.4f} ms (max abs diff to it {lib_err:.2e}), "
           f"bound {r['bound_ms']:.4f} ms", flush=True)
+
+    out["match_search"] = check_searches(i1, i2)
 
     # B6: both planes of make_flow; bit-exact.  As (2, H, W) planes, and as
     # the flow solver calls it: from SOR's separate u and v, and from an
@@ -829,8 +948,8 @@ def phase_slice(dev):
             stages.append(st)
         counts = {k: fn.launches for k, fn in wrap.items()}
         expect = {k: runs * c for k, c in estimation_launches(cfg).items()}
-        expect.update(warp=0, sor_sweeps=0, median3_planes=0,
-                      **OFF_MAIN_PATH)
+        expect.update(warp=0, match_search=0, sor_sweeps=0,
+                      median3_planes=0, **OFF_MAIN_PATH)
         check(counts == expect, f"{name}: launches {counts} == {expect}")
         launches[name] = counts
         angle = check_slice(res, rect, n, name)
@@ -851,11 +970,13 @@ def phase_slice(dev):
 
 def ransac_picks(flow, intr, cfg, draws, pixel_mask=None):
     """(best hypothesis, diversity top-J) that RANSAC picks on `flow` from
-    the injected draws, as indices of the hypotheses: the result's v
-    matched against every hypothesis' v (the same draws give the same
-    hypotheses).  B1's error sums decide between hypotheses of equal
-    count, so a change of their summation order can swap picks.  Uses only
-    entry points that earlier trees of the port also have."""
+    the injected draws (a tensor on any device), as indices of the
+    hypotheses: the result's v matched against every hypothesis' v (the
+    same draws give the same hypotheses).  B1's error sums decide between
+    hypotheses of equal count, so a change of their summation order can
+    swap picks.  Uses only entry points that earlier trees of the port also
+    have; their `ransac` takes draws on the host only (`host_draws` of the
+    callers)."""
     import torch
 
     from rs_sfm_tpu_torch.solver.minimal import calculate_velocities
@@ -883,9 +1004,9 @@ def ransac_picks(flow, intr, cfg, draws, pixel_mask=None):
     return index(rr.v), [index(v) for v in rr.top_v], int(rr.num_inliers)
 
 
-def slice_picks(dev):
-    """Phase 4's picks: both slice configurations at full HD, seed-1
-    draws."""
+def slice_picks(dev, host_draws=False):
+    """Phase 4's picks: both slice configurations at full HD, seed-1 draws
+    made on the card (moved to the host if `host_draws`)."""
     import torch
 
     from rs_sfm_tpu_torch.config import SLICE_CONFIGS
@@ -896,16 +1017,19 @@ def slice_picks(dev):
     for name, cfg in SLICE_CONFIGS.items():
         valid = prepare_flow_inputs(flow, intr, GAMMA, cfg)[4]
         draws = sample_valid_indices(torch.Generator(device=dev).manual_seed(1),
-                                     valid, cfg.ransac_trials).cpu()
-        best, tops, num = ransac_picks(flow, intr, cfg, draws)
+                                     valid, cfg.ransac_trials)
+        check(draws.is_cuda, "phase 4 draws made on the card")
+        best, tops, num = ransac_picks(
+            flow, intr, cfg, draws.cpu() if host_draws else draws)
         print(f"[4 slice] {name} {W}x{H} RANSAC picks (seed-1 draws): best "
               f"hypothesis {best} ({num} inliers), top-J {tops}", flush=True)
 
 
-def parity_picks(dev):
+def parity_picks(dev, host_draws=False):
     """Phase 5's picks at 270x480 on the card: both slice configurations
     on the seed-2 draws, and the e2e estimation on the card's flow and
-    occlusion mask with seed-3 draws."""
+    occlusion mask with seed-3 draws; the draws are made on the host and
+    handed over on the card (on the host if `host_draws`)."""
     import torch
 
     from rs_sfm_tpu_torch.config import (E2E_CONFIG, E2E_FLOW_PRESET,
@@ -921,7 +1045,9 @@ def parity_picks(dev):
         valid = prepare_flow_inputs(flow_c, intr, GAMMA, cfg)[4]
         draws = sample_valid_indices(torch.Generator().manual_seed(2), valid,
                                      cfg.ransac_trials)
-        runs.append((name, ransac_picks(flow_c.to(dev), intr, cfg, draws)))
+        runs.append((name, ransac_picks(flow_c.to(dev), intr, cfg,
+                                        draws if host_draws
+                                        else draws.to(dev))))
     _, i1, i2, _ = e2e_inputs(dev, h, w)
     fb = flow_forward_backward(i1, i2, E2E_FLOW_PRESET)
     keep = ~fb.occlusion
@@ -929,7 +1055,8 @@ def parity_picks(dev):
     draws = sample_valid_indices(torch.Generator().manual_seed(3),
                                  (valid & keep.reshape(-1)).cpu(),
                                  E2E_CONFIG.ransac_trials)
-    runs.append(("e2e", ransac_picks(fb.flow, intr, E2E_CONFIG, draws,
+    runs.append(("e2e", ransac_picks(fb.flow, intr, E2E_CONFIG,
+                                     draws if host_draws else draws.to(dev),
                                      pixel_mask=keep)))
     for name, (best, tops, num) in runs:
         print(f"[5 parity] {name} {w}x{h} RANSAC picks on the card: best "
@@ -956,7 +1083,7 @@ def phase_parity(dev):
         idx = sample_valid_indices(torch.Generator().manual_seed(2), valid,
                                    cfg.ransac_trials)
         rg = run_slice(flow_c.to(dev), intr, cfg, image_c.to(dev),
-                       sample_indices=idx)[0]
+                       sample_indices=idx.to(dev))[0]
         rc = run_slice(flow_c, intr, cfg, image_c, sample_indices=idx)[0]
         vg, vc = unit(rg.v.cpu().numpy()), unit(rc.v.numpy())
         check(np.allclose(vg * np.sign(vg @ vc), vc, rtol=0, atol=2e-4),
@@ -1003,7 +1130,7 @@ def phase_parity(dev):
                                 sample_indices=idx,
                                 pixel_mask=~fb_c.occlusion)
     rg = estimate_with_feedback(fb_g.flow, intr, GAMMA, E2E_CONFIG,
-                                sample_indices=idx,
+                                sample_indices=idx.to(dev),
                                 pixel_mask=~fb_g.occlusion)
     vg, vc = unit(rg.v.cpu().numpy()), unit(rc.v.numpy())
     dv = float(np.max(np.abs(vg * np.sign(vg @ vc) - vc)))
@@ -1023,18 +1150,21 @@ def phase_parity(dev):
     parity_picks(dev)
 
 
-# Device kernels of B1-B6 by name (csrc/*.cu), for their ms per e2e pass.
+# Device kernels of the main path's kernels by name (csrc/*.cu), for their
+# ms per e2e pass.
 PASS_SYMBOLS = {"score_hypotheses": ("score_kernel",),
                 "lm_iter": ("lm_iter_sweep", "lm_iter_reduce"),
                 "lm_iter_multi": ("lm_iter_multi_sweep",
                                   "lm_iter_multi_reduce"),
-                "warp": ("warp_kernel",), "sor_sweeps": ("sor_tile_kernel",),
+                "warp": ("warp_kernel",),
+                "match_search": ("match_kernel", "match_scan_kernel"),
+                "sor_sweeps": ("sor_tile_kernel",),
                 "median3_planes": ("median3_kernel",)}
 
 
 def profile_pass(fn):
     """(device kernels, ms the device was busy, ms the pass took, the six
-    operators called most often as (name, calls), {B1-B6 name: device ms
+    operators called most often as (name, calls), {kernel name: device ms
     of its kernels}) of one fn() under torch.profiler."""
     import re
 
@@ -1170,7 +1300,8 @@ def phase_e2e(dev):
 def sharded_rank(rank, world, flow_np, intr, draws, device):
     """One rank of phase 7 (run by parallel.launch.spawn in a fresh process
     on `device`, card 0 here): a warm-up pass, then one timed pass of the
-    sharded estimation with the launch counts reset just before it."""
+    sharded estimation with the launch counts reset just before it; the
+    draws go to the device first."""
     import torch
     import torch.distributed as dist
 
@@ -1183,6 +1314,7 @@ def sharded_rank(rank, world, flow_np, intr, draws, device):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     run = estimate_sharded(dist.group.WORLD, intr, GAMMA, ESTIMATION_CONFIG)
     flow = torch.from_numpy(flow_np).to(dev)
+    draws = torch.from_numpy(draws).to(dev)
     run(flow, sample_indices=draws)
     sync()
     wrap = reset_counts()
@@ -1219,11 +1351,11 @@ def phase_sharded(dev):
     draws = sample_valid_indices(torch.Generator().manual_seed(4),
                                  torch.from_numpy(pool_valid),
                                  cfg.ransac_trials).numpy()
-    estimate_from_flow(flow, intr, GAMMA, cfg, sample_indices=pixel[draws])
+    picked = torch.from_numpy(pixel[draws]).to(dev)
+    estimate_from_flow(flow, intr, GAMMA, cfg, sample_indices=picked)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = estimate_from_flow(flow, intr, GAMMA, cfg,
-                             sample_indices=pixel[draws])
+    ref = estimate_from_flow(flow, intr, GAMMA, cfg, sample_indices=picked)
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1263,6 +1395,20 @@ def phase_sharded(dev):
           f"sharded: inliers differ by {dn}")
     check(got["num_inliers"] > 0.9 * n, "sharded: inliers > 0.9 N")
     return got["launches"]
+
+
+def packed_keys(depth):
+    """csrc/zbuffer.cu's 64-bit keys (order-preserving depth bits << 32 |
+    source id) of flat depths, with the sign bit flipped so that int64
+    order is the kernel's unsigned order."""
+    import torch
+
+    bits = torch.where(depth == 0.0, 0.0, depth).view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    ordered = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
+                          bits | 0x80000000)
+    src = torch.arange(depth.numel(), dtype=torch.int64, device=depth.device)
+    return ((ordered << 32) | src) ^ torch.iinfo(torch.int64).min
 
 
 def phase_rectify(dev, e2e):
@@ -1309,11 +1455,23 @@ def phase_rectify(dev, e2e):
                  4 * 3 * n + 4 * 3 * n + 4 * 3 * n + n, OPS_ZBUFFER * n)
     packed24_ms = time_ms(lambda: _resolve_packed24(flat, d, colors, n,
                                                     image))
+    # Library yardstick of the min stage only: one scatter_reduce_ "amin"
+    # of B8's packed (depth, source id) keys, as int64, into the targets.
+    keys = packed_keys(d)
+    zbuf = torch.full((n + 1,), torch.iinfo(torch.int64).max,
+                      dtype=torch.int64, device=dev)
+    zbuf.scatter_reduce_(0, flat, keys, "amin")
+    check(torch.equal(zbuf[:n].reshape(H, W)
+                      != torch.iinfo(torch.int64).max, hit_k),
+          "B8 scatter_reduce_ amin of the packed keys hits B8's targets")
+    rec["library_ms"] = time_ms(
+        lambda: zbuf.scatter_reduce_(0, flat, keys, "amin"))
     print(f"[8 rectify] B8 zbuffer_splat {H}x{W} on the e2e depth map "
           f"({live} live splats, {int(hit_k.sum())} hit targets): bit-exact "
           f"to plain; {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, "
-          f"packed24 resolve {packed24_ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms", flush=True)
+          f"packed24 resolve {packed24_ms:.4f} ms, scatter_reduce_ amin of "
+          f"the packed keys (min stage only) {rec['library_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms", flush=True)
 
     engines = {}
     for method in ("packed24", "packed", "sort", "scatter", "pallas"):

@@ -8,9 +8,10 @@ warp -> linearised brightness + gradient constancy -> red-black SOR sweeps
 -> 3x3 median; finally the forward-backward occlusion test.  Boundaries
 replicate the edge everywhere.
 
-Every warp, SOR solve and median goes through the wrappers of the
-hand-written kernels of ops/kernels (csrc/warp.cu, sor.cu, median.cu): the
-kernel on a CUDA tensor, its plain twin on a CPU tensor.  The config's
+Every discrete search, warp, SOR solve and median goes through the
+wrappers of the hand-written kernels of ops/kernels (csrc/match.cu,
+warp.cu, sor.cu, median.cu): the kernel on a CUDA tensor, its plain twin
+on a CPU tensor.  The config's
 warp_engine / sor_engine keep their JAX values only so a configuration
 moves across; both values take this one path.  Unlike the TPU kernels, the
 CUDA kernels take every pyramid shape
@@ -19,10 +20,9 @@ everywhere (no `warp_radius` window).  The SOR twin is the TPU kernel's
 absolute form, which agrees with the JAX XLA loop to about 1e-3 px
 (ops/kernels/sor.py).
 
-`lax.scan` over the discrete-search candidates becomes a Python loop: the
-candidates' costs are computed as batched (K, H, W) tensors (one warp
-launch for all K candidate flows), and the best / second / ambiguity
-bookkeeping runs in candidate order.
+`lax.scan` over the discrete-search candidates becomes one launch of the
+search kernel (ops/kernels/match.py), which scans the candidates in the
+JAX order.
 
 Not ported (they raise NotImplementedError): the census data term, the
 shifted discrete refine, the anchored pass, and the flow prior (relock).
@@ -37,6 +37,7 @@ import torch
 
 from rs_sfm_tpu_torch.flow.config import DenseFlowConfig
 from rs_sfm_tpu_torch.ops import stencil
+from rs_sfm_tpu_torch.ops.kernels import match as kmatch
 from rs_sfm_tpu_torch.ops.kernels import median as kmedian
 from rs_sfm_tpu_torch.ops.kernels import sor as ksor
 from rs_sfm_tpu_torch.ops.kernels import warp as kwarp
@@ -165,13 +166,6 @@ def _median_flow(u, v):
     return kmedian.median3_flow(u, v)
 
 
-def _box5(x):
-    for axis in (-2, -1):
-        x = (_shift(x, -2, axis) + _shift(x, -1, axis) + x
-             + _shift(x, 1, axis) + _shift(x, 2, axis))
-    return x
-
-
 def _match_planes(i1, i2, cfg):
     """Discrete-matching preprocessing: locally mean-removed planes, or
     contrast-normalised ones under gain_correct."""
@@ -183,88 +177,16 @@ def _match_planes(i1, i2, cfg):
     return out[0], out[1]
 
 
-# Ambiguity threshold of the exported mask (dense.py:431).
-_AMB_RATIO = 0.9
-# Candidate costs computed at once: bounds the (K, H, W) temporaries.
-_CHUNK_ELEMENTS = 1 << 24
-
-
-def _candidates(radius: int):
-    """The (2r+1)^2 integer offsets in the JAX scan's order:
-    k = dy * side + dx, offset (dx - r, dy - r)."""
-    side = 2 * radius + 1
-    return [(float(k % side - radius), float(k // side - radius))
-            for k in range(side * side)]
-
-
-def _match_scan(cost_chunks, cand_of, shape, dtype, device, *,
-                ratio=0.0, fallback=None):
-    """The (2r+1)^2 scan of dense.py::_match_scan without a prior.
-
-    cost_chunks yields (K_c, H, W) raw match costs in candidate order;
-    cand_of(k) gives candidate k's flow (u, v) (planes or numbers).
-    Returns (best (H, W, 2), second (H, W, 2), ambiguous (H, W) bool).
-    """
-    inf = torch.full(shape, torch.inf, dtype=dtype, device=device)
-    zero = torch.zeros(shape, dtype=dtype, device=device)
-    best_cost, second_cost = inf, inf
-    best_u = best_v = second_u = second_v = zero
-    k = 0
-    for costs in cost_chunks:
-        for cost in costs:
-            cu, cv = cand_of(k)
-            k += 1
-            better = cost < best_cost
-            far = torch.maximum(torch.abs(cu - best_u),
-                                torch.abs(cv - best_v)) > 1.5
-            to_second = better & far
-            new_second = ~better & far & (cost < second_cost)
-            second_cost = torch.where(
-                better, torch.where(far, best_cost, second_cost),
-                torch.where(new_second, cost, second_cost))
-            second_u = torch.where(to_second, best_u,
-                                   torch.where(new_second, cu, second_u))
-            second_v = torch.where(to_second, best_v,
-                                   torch.where(new_second, cv, second_v))
-            best_cost = torch.where(better, cost, best_cost)
-            best_u = torch.where(better, cu, best_u)
-            best_v = torch.where(better, cv, best_v)
-    best = torch.stack([best_u, best_v], dim=-1)
-    second = torch.stack([second_u, second_v], dim=-1)
-    amb = best_cost >= _AMB_RATIO * second_cost
-    if ratio > 0.0 and fallback is not None:
-        ok = best_cost < ratio * second_cost
-        best = torch.where(ok[..., None], best, fallback)
-    return best, second, amb
-
-
-def _chunks(n: int, h: int, w: int):
-    step = max(1, _CHUNK_ELEMENTS // (h * w))
-    return [(a, min(n, a + step)) for a in range(0, n, step)]
-
-
 def _coarse_init(i1, i2, radius: int, cfg):
     """Exhaustive integer search in [-radius, radius]^2 at the coarsest
     level (5x5 box-filtered squared differences), median-cleaned.
     Returns (flow, second, ambiguous)."""
     i1m, i2m = _match_planes(i1, i2, cfg)
-    h, w = i1m.shape
-    padded = stencil.pad_edge(i2m, radius)
-    offs = _candidates(radius)
-
-    def cost_chunks():
-        for a, b in _chunks(len(offs), h, w):
-            shifted = torch.stack([
-                padded[int(dv) + radius:int(dv) + radius + h,
-                       int(du) + radius:int(du) + radius + w]
-                for du, dv in offs[a:b]])
-            d = shifted - i1m
-            yield _box5(d * d)
-
-    best, second, amb = _match_scan(
-        cost_chunks(), lambda k: offs[k], (h, w), i1m.dtype, i1m.device,
-        ratio=cfg.match_ratio,
-        fallback=torch.zeros((h, w, 2), dtype=i1m.dtype, device=i1m.device))
+    fallback = (torch.zeros(i1m.shape + (2,), dtype=i1m.dtype,
+                            device=i1m.device)
+                if cfg.match_ratio > 0.0 else None)
+    best, second, amb = kmatch.match_search(i1m, i2m, None, radius,
+                                            cfg.match_ratio, fallback)
     return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
@@ -273,24 +195,8 @@ def _discrete_refine(i1, i2, flow, radius: int, cfg):
     [-radius, radius]^2, each I2 re-warped, best box-filtered SSD per pixel.
     Returns (median-cleaned flow, second, ambiguous)."""
     i1m, i2m = _match_planes(i1, i2, cfg)
-    h, w = i1m.shape
-    offs = _candidates(radius)
-    off_t = torch.tensor(offs, dtype=flow.dtype, device=flow.device)
-    fu, fv = flow[..., 0], flow[..., 1]
-
-    def cost_chunks():
-        for a, b in _chunks(len(offs), h, w):
-            cand = flow[None] + off_t[a:b, None, None, :]
-            d = kwarp.warp(i2m, cand) - i1m
-            yield _box5(d * d)
-
-    def cand_of(k):
-        du, dv = offs[k]
-        return fu + du, fv + dv
-
-    best, second, amb = _match_scan(
-        cost_chunks(), cand_of, (h, w), i1m.dtype, i1m.device,
-        ratio=cfg.match_ratio, fallback=flow)
+    best, second, amb = kmatch.match_search(i1m, i2m, flow, radius,
+                                            cfg.match_ratio, flow)
     return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 

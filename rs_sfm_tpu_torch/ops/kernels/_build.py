@@ -28,12 +28,12 @@ BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# score.cu, warp.cu, sor.cu: no FMA contraction, so every pixel's result is
+# score.cu, warp.cu, sor.cu, match.cu: no FMA contraction, so every pixel's result is
 # bit-identical to the plain PyTorch version's on the card (see the notes in
 # the sources).
 _EXTRA_FLAGS = {"score": ["-fmad=false"], "lm_iter": [],
                 "warp": ["-fmad=false"], "sor": ["-fmad=false"],
-                "median": [], "zbuffer": []}
+                "median": [], "zbuffer": [], "match": ["-fmad=false"]}
 SOURCES = tuple(f"{name}.cu" for name in _EXTRA_FLAGS)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -76,6 +76,13 @@ def warp_plain(img, flow):
     return out[0] if squeeze else out
 
 
+def aligned8(t):
+    """`t` contiguous and 8-byte aligned (the kernels read flows as
+    float2)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 8 else t
+
+
 def _lib():
     lib = _build.load("warp")
     if not getattr(lib, "_typed", False):
@@ -99,7 +106,7 @@ def warp(img, flow):
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
     img3 = img3.contiguous()
-    flow4 = flow4.contiguous()
+    flow4 = aligned8(flow4)
     h, w = img3.shape[1:]
     lib = _lib()
     with torch.cuda.device(img.device):

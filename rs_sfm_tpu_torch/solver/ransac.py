@@ -182,8 +182,11 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
     if sample_indices is None:
         idx = broadcast(sample_valid_indices(generator, pv, trials), group)
     else:
-        idx = torch.as_tensor(np.array(sample_indices), dtype=torch.int64)
-        idx = idx.to(coords.device)
+        # A tensor may lie on any device; numpy or list input is copied,
+        # since torch cannot wrap a read-only array.
+        if not torch.is_tensor(sample_indices):
+            sample_indices = torch.from_numpy(np.array(sample_indices))
+        idx = sample_indices.to(device=coords.device, dtype=torch.int64)
         if idx.shape != (trials, 9):
             raise ValueError(f"sample_indices must be ({trials}, 9), got "
                              f"{tuple(idx.shape)}")

@@ -23,6 +23,10 @@ from rs_sfm_tpu_torch.flow.dense import DenseFlowConfig
 from rs_sfm_tpu_torch.geom.camera import Intrinsics
 from rs_sfm_tpu_torch.models import FLOW_PRESETS
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 
 def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]

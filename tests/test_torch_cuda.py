@@ -23,13 +23,16 @@ and max.  B7 (the
 split LM iteration) is held to its plain versions with B3's tolerances, and
 to B3 itself bit for bit: both run the same sweep, reduction and decide
 code.  B8 (the z-buffer splat) is bit-exact: integer keys and a colour
-copy.
+copy.  B4's discrete search (csrc/match.cu) is bit-exact on every tile: the
+warp's IEEE operations without FMA contraction, the box's adds and the scan
+in the plain version's order.  RANSAC takes its draws on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rs_sfm_tpu_torch.ops.kernels import match as tmatch
 from rs_sfm_tpu_torch.ops.kernels import median as tmedian
 from rs_sfm_tpu_torch.ops.kernels import refine_kernels as trk
 from rs_sfm_tpu_torch.ops.kernels import score as tscore
@@ -303,11 +306,12 @@ def _smooth_plane(h, w, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3)] + FLOW_SHAPES
+                         + [(1080, 1920)])
 def test_warp_kernel_matches_plain(cuda_device, h, w):
     """Flows of up to +-w/2 px leave the image on every side (clamped
     samples); a batch of K flows over one plane, P planes over one flow,
-    and one plane by one flow."""
+    and one plane by one flow; bit for bit, signed zeros included."""
     rng = np.random.default_rng(h)
     img = torch.from_numpy(_smooth_plane(h, w, rng)).to(cuda_device)
     flows = torch.from_numpy(rng.uniform(-w / 2, w / 2, (5, h, w, 2)).astype(
@@ -320,7 +324,7 @@ def test_warp_kernel_matches_plain(cuda_device, h, w):
         assert twarp.warp.launches == before + 1
         ref = twarp.warp_plain(a, f)
         assert got.shape == ref.shape
-        assert torch.equal(got, ref)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -423,3 +427,108 @@ def test_sor_kernel_matches_plain(cuda_device, h, w, iters):
     assert tsor.read_stride(flow[..., 0], flow[..., 1]) == 2
     u_f, v_f = tsor.sor_sweeps(coef, flow[..., 0], flow[..., 1], **params)
     assert torch.equal(u_f, u_p) and torch.equal(v_f, v_p)
+
+
+# The discrete searches of the e2e pass: (shape, radius, refine).
+SEARCHES = [((135, 240), 4, True), ((68, 120), 4, True), ((34, 60), 4, True),
+            ((17, 30), 4, True), ((34, 60), 8, False), ((17, 30), 8, False)]
+
+
+def _search_inputs(h, w, seed):
+    """Matching planes (frame 2 about frame 1 moved by (2, -1) px; its left
+    half a stripe pattern of period 3 columns, where candidates 3 px apart
+    tie exactly) and a flow with sub-pixel noise, an integer band, and
+    flows of 1.5x the plane near the borders (samples past every edge)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(h + 8, w + 8)).astype(np.float32)
+    i1 = base[4:4 + h, 4:4 + w].copy()
+    i2 = base[3:3 + h, 6:6 + w].copy()
+    i2[:, : w // 2] = np.float32([0.5, -0.25, 0.75])[np.arange(w // 2) % 3]
+    f = np.empty((h, w, 2), np.float32)
+    f[..., 0] = 2.0 + rng.uniform(-0.6, 0.6, (h, w))
+    f[..., 1] = -1.0 + rng.uniform(-0.6, 0.6, (h, w))
+    f[h // 3: h // 3 + 2] = np.rint(f[h // 3: h // 3 + 2])
+    f[:2, :, 1] = -1.5 * h
+    f[-2:, :, 1] = 1.5 * h
+    f[:, :2, 0] = -1.5 * w
+    f[:, -2:, 0] = 1.5 * w
+    return [torch.from_numpy(a) for a in (i1, i2, f)]
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [0.0, 0.8])
+@pytest.mark.parametrize("shape,radius,refine", SEARCHES)
+def test_match_kernel_matches_plain(cuda_device, shape, radius, refine,
+                                    ratio):
+    """Every e2e search shape in its mode, through the wrapper (one launch)
+    and on every tile of csrc/match.cu."""
+    h, w = shape
+    i1m, i2m, flow = (a.to(cuda_device) for a in _search_inputs(h, w, h))
+    fb = flow if refine else torch.zeros_like(flow)
+    args = (i1m, i2m, flow if refine else None, radius, ratio,
+            fb if ratio > 0 else None)
+    ref = tmatch.match_search_plain(*args)
+    assert 0 < int(ref[2].sum()) < h * w
+    limits = tsor.card_limits(cuda_device)
+    before = tmatch.match_search.launches
+    got = tmatch.match_search(*args)
+    torch.cuda.synchronize()
+    assert tmatch.match_search.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _same_bits(g, r)
+    if refine:  # a flow laid out as planes, as the pyramid's upsample gives
+        planar = flow.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        got = tmatch.match_search(i1m, i2m, planar, *args[3:])
+        assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    for tile in range(len(tmatch.TILES)):
+        if tmatch.smem_bytes(tile, radius) > limits[1]:
+            continue
+        res = tmatch.match_launch(*args, tile)
+        torch.cuda.synchronize()
+        for g, r in zip(res, ref):
+            assert _same_bits(g, r), tile
+
+
+@pytest.mark.cuda
+def test_ransac_takes_draws_on_the_card(cuda_device):
+    """Draws made on the card by `sample_valid_indices` go to `ransac` and
+    `estimate_from_flow` as they are, with the results of the same draws
+    handed over from the host."""
+    import dataclasses
+
+    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG
+    from rs_sfm_tpu_torch.geom.camera import Intrinsics
+    from rs_sfm_tpu_torch.solver import pipeline, ransac
+
+    cfg = dataclasses.replace(ESTIMATION_CONFIG, ransac_trials=32,
+                              refine_iterations=3, refine_winnow_iters=2)
+    h, w, f = 48, 64, 60.0
+    intr = Intrinsics(fx=f, fy=f, cx=w / 2.0, cy=h / 2.0)
+    rng = np.random.default_rng(2)
+    flow = (np.float32([0.8, -0.4]) + rng.normal(scale=0.05, size=(h, w, 2))
+            ).astype(np.float32)
+    flow = torch.from_numpy(flow).to(cuda_device)
+    coords, flow_n, alpha, alpha_k, valid = pipeline.prepare_flow_inputs(
+        flow, intr, 0.9, cfg)
+    draws = ransac.sample_valid_indices(
+        torch.Generator(device=cuda_device).manual_seed(3), valid,
+        cfg.ransac_trials)
+    assert draws.is_cuda
+    fits = []
+    for idx in (draws, draws.cpu(), draws.cpu().numpy()):
+        rr = ransac.ransac(coords, flow_n, alpha, alpha_k, valid,
+                           use_k=False, trials=cfg.ransac_trials,
+                           tolerance=cfg.ransac_tol, sample_indices=idx,
+                           engine=cfg.ransac_engine, top_j=cfg.refine_starts)
+        res = pipeline.estimate_from_flow(flow, intr, 0.9, cfg,
+                                          sample_indices=idx)
+        fits.append([rr.v, rr.num_inliers, res.v, res.w, res.num_inliers])
+    for got in fits[1:]:
+        for a, b in zip(got, fits[0]):
+            assert torch.equal(a, b)

@@ -40,6 +40,10 @@ from rs_sfm_tpu_torch.solver import refine_fused as tref
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 jransac = importlib.import_module("rs_sfm_tpu.solver.ransac")
 
 H, W, F, GAMMA = 48, 64, 55.0, 0.9

@@ -34,9 +34,14 @@ from rs_sfm_tpu_torch import config as tconfig
 from rs_sfm_tpu_torch.data.make_flow import make_flow
 from rs_sfm_tpu_torch.flow import dense as tdense
 from rs_sfm_tpu_torch.models import get_flow_preset
+from rs_sfm_tpu_torch.ops.kernels import match as tmatch
 from rs_sfm_tpu_torch.ops.kernels import median as tmedian
 from rs_sfm_tpu_torch.ops.kernels import sor as tsor
 from rs_sfm_tpu_torch.ops.kernels import warp as twarp
+
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
 
 
 def _smooth_pair(h, w, seed=0, shift=(2, -2)):
@@ -200,8 +205,10 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
     """The main path calls B4-B6 as often as chip_smoke.py's count, which
     it asserts against the launch counters on the card (the SOR wrapper
     launches `launches_per_call` kernels per call), whichever engine names
-    the config carries over from JAX."""
-    calls = {"warp": 0, "sor_sweeps": 0, "median3_planes": 0}
+    the config carries over from JAX.  Each discrete search is one
+    `match_search` launch and no `warp` launch."""
+    calls = {"warp": 0, "match_search": 0, "sor_sweeps": 0,
+             "median3_planes": 0}
 
     def spy(name, fn, weight):
         def wrapped(*args, **kwargs):
@@ -211,6 +218,9 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
 
     monkeypatch.setattr(twarp, "warp",
                         spy("warp", twarp.warp, lambda a, kw: 1))
+    monkeypatch.setattr(tmatch, "match_search",
+                        spy("match_search", tmatch.match_search,
+                            lambda a, kw: 1))
     monkeypatch.setattr(tsor, "sor_sweeps",
                         spy("sor_sweeps", tsor.sor_sweeps,
                             lambda a, kw: tsor.launches_per_call(
@@ -229,6 +239,11 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
                                  cfg)
     expect = chip_smoke.flow_launches(cfg, H, W)
     assert calls == expect
+    # Forward levels 64x128, 32x64, 16x32; backward 32x64, 16x32: a coarse
+    # search and a refine at each level but the finest, and 2 warps a level
+    # (3 on the finest), plus the occlusion warp.
+    assert calls["match_search"] == (1 + 2) + (1 + 1)
+    assert calls["warp"] == (2 + 2 + 3) + (2 + 3) + 1
     assert all(n > 0 for n in calls.values())
 
 

@@ -20,6 +20,10 @@ from rs_sfm_tpu_torch.solver import beta as tbeta
 from rs_sfm_tpu_torch.solver import depth as tdepth
 from rs_sfm_tpu_torch.solver import flow_model as tfm
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 ATOL = 1e-12
 N = 257
 H = 48

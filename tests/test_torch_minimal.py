@@ -16,6 +16,10 @@ from rs_sfm_tpu.solver.flow_model import predict_flow
 from rs_sfm_tpu_torch.ops import linalg as tlinalg
 from rs_sfm_tpu_torch.solver import minimal as tmin
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 W_TOL = 2.3e-10
 V_TOL = 2.3e-9
 B = 64

@@ -42,6 +42,10 @@ from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
 
 import torch_parallel_ranks as ranks
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 N = 2048
 HUBER = 1e-3
 # More ranks against one, the gates the repo uses for float32 summation

@@ -40,6 +40,10 @@ from rs_sfm_tpu_torch.solver import refine_fused as tref
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 jransac = importlib.import_module("rs_sfm_tpu.solver.ransac")
 
 H, W, F, GAMMA = 60, 80, 70.0, 0.9
@@ -154,6 +158,37 @@ def test_slice_goes_through_the_kernel_wrappers(name, score_calls, lm_calls,
                                        torch.Generator().manual_seed(0))
     assert calls == {"score": score_calls, **lm_calls}
     assert torch.isfinite(res.v).all() and torch.isfinite(res.w).all()
+
+
+def test_injected_draws_as_tensor_or_array():
+    """`ransac` and `estimate_from_flow` take the injected draws as a torch
+    tensor, a numpy array or a read-only numpy array (which torch cannot
+    wrap), with equal results; a tensor may lie on any device (the CUDA
+    case is in tests/test_torch_cuda.py)."""
+    cfg = dataclasses.replace(tconfig.ESTIMATION_CONFIG, ransac_trials=16,
+                              refine_iterations=3, refine_winnow_iters=2)
+    flow = torch.from_numpy(_rs_flow(24, 32))
+    coords, flow_n, alpha, alpha_k, valid = tpipeline.prepare_flow_inputs(
+        flow, INTR, GAMMA, cfg)
+    draws = transac.sample_valid_indices(torch.Generator().manual_seed(5),
+                                         valid, cfg.ransac_trials)
+    frozen = draws.numpy().copy()
+    frozen.setflags(write=False)
+    forms = {"tensor": draws, "int32 tensor": draws.to(torch.int32),
+             "array": draws.numpy(), "read-only array": frozen}
+    fits = {}
+    for form, idx in forms.items():
+        rr = transac.ransac(coords, flow_n, alpha, alpha_k, valid,
+                            use_k=False, trials=cfg.ransac_trials,
+                            tolerance=cfg.ransac_tol, sample_indices=idx,
+                            engine=cfg.ransac_engine, top_j=cfg.refine_starts)
+        res = tpipeline.estimate_from_flow(flow, INTR, GAMMA, cfg,
+                                           sample_indices=idx)
+        fits[form] = [rr.v, rr.w, rr.num_inliers, rr.top_v, res.v, res.w,
+                      res.k, res.num_inliers, res.depth_map]
+    for form, got in fits.items():
+        for a, b in zip(got, fits["tensor"]):
+            assert torch.equal(a, b), form
 
 
 def test_unported_options_raise():

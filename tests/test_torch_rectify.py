@@ -30,6 +30,10 @@ from rs_sfm_tpu_torch.rectify.backproject import backproject
 from rs_sfm_tpu_torch.rectify.crackfill import fill_cracks
 from rs_sfm_tpu_torch.rectify.warp import small_motion_warp
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 H, W, GAMMA = 40, 56, 0.9
 INTR = Intrinsics(fx=50.0, fy=48.0, cx=W / 2.0, cy=H / 2.0)
 JINTR = JaxIntrinsics(**dataclasses.asdict(INTR))

@@ -37,6 +37,10 @@ from rs_sfm_tpu.solver.refine_pallas import refine_pallas_multi as j_refine_mult
 from rs_sfm_tpu_torch.ops.kernels import refine_kernels as trk
 from rs_sfm_tpu_torch.solver import refine_fused as tref
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 N = 4096
 HUBER = 1e-3
 

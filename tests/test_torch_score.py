@@ -24,6 +24,10 @@ from rs_sfm_tpu.solver.flow_model import predict_flow as jpredict
 from rs_sfm_tpu_torch.ops.kernels import score as tscore
 from rs_sfm_tpu_torch.solver import ransac as transac
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 # rs_sfm_tpu.solver re-exports a function named `ransac`; fetch the module.
 jransac = importlib.import_module("rs_sfm_tpu.solver.ransac")
 

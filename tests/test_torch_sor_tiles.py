@@ -17,6 +17,10 @@ import torch
 
 from rs_sfm_tpu_torch.ops.kernels import sor as tsor
 
+# The test workers share the CPU with the JAX tests: a few intra-op threads
+# each (the results do not depend on the count).
+torch.set_num_threads(2)
+
 PARAMS = dict(omega=1.85, lam=0.08, eps2=1e-6, wbr=1.0, wgrad=0.7)
 K = tsor.SWEEPS_PER_LAUNCH
 

@@ -15,6 +15,9 @@ from rs_sfm_tpu_torch.geom.camera import Intrinsics
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 
+# Each rank shares the CPU with the other ranks and the test workers.
+torch.set_num_threads(2)
+
 F, GAMMA = 70.0, 0.9
 
 
