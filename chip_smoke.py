@@ -4,20 +4,24 @@
 Drives the port's main path -- dense flow (forward + half-resolution
 backward + occlusion test) -> estimation with two model-feedback passes ->
 per-scanline poses -> packed24 rectification -- at full HD (1920x1080) on
-bench.py's input, the solver slice (flow field -> RANSAC -> fused
+bench.py's input and, held to the renderer's truth, on the castle pair,
+the solver slice (flow field -> RANSAC -> fused
 Schur-LM -> rectification) in both slice configurations, the estimation
 sharded over two ranks, and every rectification engine, through the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
 each path against their plain PyTorch versions.
 
     python3 chip_smoke.py          # one CUDA device; a few minutes
+    python3 chip_smoke.py --save-b8 PATH   # also saves B8's two inputs,
+                                           # for time_b8 of another tree
 
 Phases, each printing its lines before the next starts (any failure raises
 and the script exits non-zero; nothing is caught and continued):
   [1 device]  the card's name, then nvidia-smi's "name, power.limit" line
   [2 build]   nvcc builds csrc/*.cu for sm_90a, all at once; seconds,
-              ptxas usage, and B1's SASS instructions per pixel and
-              hypothesis (cuobjdump -sass, ops/kernels/_sass.py)
+              ptxas usage, B1's SASS instructions per pixel and
+              hypothesis, and B8's splat atomics (RED, not ATOM)
+              (cuobjdump -sass, ops/kernels/_sass.py)
   [3 kernels] B1 score, B2 lm_iter, B3 lm_iter_multi (J = 4 and 1), B7
               lm_sums_multi + lm_decide, B4 warp and match_search, B5
               sor_sweeps, B6 median3_planes (and median3_flow from both
@@ -42,13 +46,25 @@ and the script exits non-zero; nothing is caught and continued):
               all seven kernels asserted against the configuration's (B5 at
               most 330 a pass); then one pass under torch.profiler (device
               kernels, busy share, device ms of each kernel)
+  [6b castle] tests/test_fullhd_flow.py's production gates on the card:
+              the castle pair rendered at full HD (gamma 0.9, the gate's
+              v and w), its true flow and depth; the clean pair through the
+              variational preset and the photometric pair (exposure 1.35,
+              vignette 0.35, noise 0.005) through the robust preset, each
+              into the production estimation (config.E2E_CONFIG, checked
+              equal to the test's) and the packed24 rectification: flow EPE
+              median, err_v, err3d and depth RMSE beside their gates, stage
+              ms; then the clean pair through E2E_FLOW_PRESET, ungated
   [7 sharded] the estimation at full HD sharded over 2 ranks that share the
               one card over gloo (NCCL refuses two ranks on one device):
               both ranks' scalars bit-identical, and within gates of the
               unsharded pass on the same hypotheses; B7 launches per rank
-  [8 rectify] B8 zbuffer_splat vs its plain version on the e2e pass's depth
-              map and poses (bit-exact), its min stage against one
-              scatter_reduce_ "amin" of its packed keys, then the five
+  [8 rectify] B8 zbuffer_splat vs its plain version (bit-exact) on the e2e
+              pass's depth map and poses and on the castle's frame 1 (its
+              true depth and poses): live splats, hit targets, ms and the
+              device ops of a call (torch.profiler) on each, two calls back
+              to back on the two inputs, its min stage against one
+              scatter_reduce_ "amin" of its packed keys; then the five
               engines, fill_cracks and small_motion_warp at full HD;
               "pallas" equals "scatter"
 The last two lines are the per-kernel JSON record and
@@ -107,6 +123,25 @@ OPS_MATCH_COARSE = 27
 # Per source pixel (zbuffer.cu): two adds and floors, four bound compares,
 # the target index and one 64-bit atomic min.
 OPS_ZBUFFER = 10
+
+# The full-HD castle gate (phase 6b): tests/test_fullhd_flow.py's two
+# production gates at their own thresholds, case: (flow preset, gates).
+CASTLE_GATES = {
+    "clean": ("variational", {"epe_median": 0.3, "err_v": 0.04,
+                              "err3d": 0.35, "depth_rmse": 0.9}),
+    "photometric": ("robust", {"epe_median": 3.5, "err_v": 0.12,
+                               "err3d": 1.0, "depth_rmse": 2.2}),
+}
+# That test's estimation configuration (EST_CFG, tests/test_fullhd_flow.py:
+# 51-57); config.E2E_CONFIG must equal it but for the kernel engines and
+# RANSAC's chunk, which change no result.
+FULLHD_EST_CFG = dict(ransac_trials=256, ransac_tol=0.02,
+                      refine_iterations=20, refine_starts=4,
+                      refine_winnow_iters=8, refine_rel_tol=0.0,
+                      depth_residual_px=2.0, refine_loss_delta_px=3.0,
+                      feedback_passes=2, feedback_mode="refine",
+                      feedback_refine_iterations=8)
+ENGINE_FIELDS = {"refine_engine", "ransac_engine", "ransac_chunk"}
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -339,6 +374,23 @@ def phase_build():
     for line in _sass.report(str(_build.library_path("score")),
                              "score_kernel", "MUFU.RCP"):
         print(f"  score SASS: {line}")
+    # B8's splat: its 64-bit min is a reduction (RED), not an ATOM that
+    # waits for the old value.
+    zlib = str(_build.library_path("zbuffer"))
+    for prefix in ("RED", "ATOM"):
+        for line in _sass.opcodes(zlib, "splat_kernel", prefix):
+            print(f"  zbuffer SASS: {line}")
+    counts = _sass.opcode_counts(zlib, "splat_kernel")
+    if counts is None:
+        print("  zbuffer SASS: no cuobjdump, B8's RED not checked")
+    else:
+        ops = [op for found in counts.values() for op in found]
+        check(counts and any(op.startswith("REDG") and ".MIN.64" in op
+                             for op in ops)
+              and not any(op.startswith("ATOM") for op in ops),
+              "B8 splat_kernel's min is a REDG .MIN.64 and no ATOM")
+        print("  zbuffer SASS: checked, the splat's min is a REDG .MIN.64 "
+              "and it has no ATOM")
     sys.stdout.flush()
 
 
@@ -1190,6 +1242,28 @@ def profile_pass(fn):
     return len(kernels), busy_ms, wall_ms, ops[:6], by_kernel
 
 
+def stage_marks():
+    """(mark, read): mark(name) records a CUDA event after the work issued
+    so far; read() synchronises and returns {stage: ms since the mark
+    before}."""
+    import torch
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def read():
+        marks[-1][1].synchronize()
+        return {name: marks[i][1].elapsed_time(ev)
+                for i, (name, ev) in enumerate(marks[1:])}
+
+    mark("start")
+    return mark, read
+
+
 def run_e2e(i1, i2, image, intr, generator):
     """One pass of the main path; returns (flow result, estimation,
     rectified, stage ms)."""
@@ -1201,14 +1275,7 @@ def run_e2e(i1, i2, image, intr, generator):
     from rs_sfm_tpu_torch.rectify.backproject import backproject
     from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
 
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    mark("start")
+    mark, read = stage_marks()
     fb = flow_forward_backward(i1, i2, E2E_FLOW_PRESET, timer=mark)
     res = estimate_with_feedback(fb.flow, intr, GAMMA, E2E_CONFIG, generator,
                                  pixel_mask=~fb.occlusion, timer=mark)
@@ -1216,10 +1283,7 @@ def run_e2e(i1, i2, image, intr, generator):
                           dtype=torch.float32)
     rect = backproject(image, res.depth_map, r, t, intr)
     mark("rectify")
-    marks[-1][1].synchronize()
-    stages = {name: marks[i][1].elapsed_time(ev)
-              for i, (name, ev) in enumerate(marks[1:])}
-    return fb, res, rect, stages
+    return fb, res, rect, read()
 
 
 def phase_e2e(dev):
@@ -1295,6 +1359,64 @@ def phase_e2e(dev):
     for kname, ms in pass_ms.items():
         check(ms > 0.0, f"{kname}: device time in the profiled pass")
     return counts, pass_ms, (image, res, intr)
+
+
+def phase_castle(dev):
+    """The castle gate: tests/test_fullhd_flow.py's production gates at
+    full HD on the card, held to the renderer's truth; returns the castle
+    truth (phase 8 splats its frame 1)."""
+    import dataclasses
+
+    import torch
+
+    from rs_sfm_tpu_torch.config import (E2E_CONFIG, E2E_FLOW_PRESET,
+                                         PipelineConfig)
+    from rs_sfm_tpu_torch.data.synthetic import apply_photometric
+    from rs_sfm_tpu_torch.eval.gate import (PHOTOMETRIC, castle_truth,
+                                            production_gate)
+    from rs_sfm_tpu_torch.models import get_flow_preset
+
+    est = PipelineConfig(**FULLHD_EST_CFG)
+    differ = {f.name for f in dataclasses.fields(PipelineConfig)
+              if getattr(E2E_CONFIG, f.name) != getattr(est, f.name)}
+    check(differ == ENGINE_FIELDS,
+          f"E2E_CONFIG equals the gate's EST_CFG but in {differ}")
+    t0 = time.perf_counter()
+    truth = castle_truth(H, W, dev)
+    torch.cuda.synchronize()
+    truth_s = time.perf_counter() - t0
+    moving = torch.linalg.vector_norm(truth.gt_flow, dim=-1) > 0
+    mag = torch.linalg.vector_norm(truth.gt_flow, dim=-1)[moving]
+    print(f"[6b castle] {W}x{H} castle rendered (both frames, RS and GS), "
+          f"true flow and true depth in {truth_s:.2f} s: "
+          f"{float((truth.true_depth > 0).float().mean()):.4f} of pixels "
+          f"hit, true flow median {float(mag.median()):.3f} px, max "
+          f"{float(mag.max()):.3f} px; E2E_CONFIG equals "
+          f"tests/test_fullhd_flow.py's EST_CFG but in {sorted(differ)}",
+          flush=True)
+    i2p = apply_photometric(truth.i2, torch.Generator(device=dev).manual_seed(
+        1), **PHOTOMETRIC)
+    cases = [(case, get_flow_preset(preset), i2p if case == "photometric"
+              else truth.i2, gates)
+             for case, (preset, gates) in CASTLE_GATES.items()]
+    cases.append(("clean, E2E_FLOW_PRESET (no gate)", E2E_FLOW_PRESET,
+                  truth.i2, None))
+    for case, flow_cfg, i2, gates in cases:
+        mark, read = stage_marks()
+        got = production_gate(truth, i2, flow_cfg, E2E_CONFIG,
+                              torch.Generator(device=dev).manual_seed(0),
+                              timer=mark)
+        stages = read()
+        shown = " ".join(
+            f"{k}={v:.4f}" + (f" (gate {gates[k]})" if gates else "")
+            for k, v in got.items())
+        print(f"[6b castle] {case}: {shown}; ms "
+              + " ".join(f"{k}={v:.2f}" for k, v in stages.items()),
+              flush=True)
+        if gates:
+            for k, gate in gates.items():
+                check(got[k] <= gate, f"castle {case}: {k} {got[k]} <= {gate}")
+    return truth
 
 
 def sharded_rank(rank, world, flow_np, intr, draws, device):
@@ -1411,10 +1533,83 @@ def packed_keys(depth):
     return ((ordered << 32) | src) ^ torch.iinfo(torch.int64).min
 
 
-def phase_rectify(dev, e2e):
+def op_split(fn, calls=20):
+    """{device op name: (ops per call, ms per call)} of fn() over `calls`
+    calls under torch.profiler (kernels and memsets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            count, us = split.get(e.name, (0, 0.0))
+            split[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    return {name: (count / calls, us / calls / 1e3)
+            for name, (count, us) in split.items()}
+
+
+def splat_bytes(n, hits):
+    """The bytes B8 must move on n pixels of which `hits` targets are hit:
+    tx, ty and depth read (12 a pixel), the image and hit flags written
+    (13 a pixel), and each hit target's winning colour read (12)."""
+    return 25 * n + 12 * hits
+
+
+def splat_exact(out, args):
+    """Whether B8's (gs_image, scattered) on `args` equal its plain
+    version's bit for bit."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import zbuffer as kz
+
+    gs_p, hit_p = kz.zbuffer_splat_plain(*args)
+    return torch.equal(out[0], gs_p) and torch.equal(out[1], hit_p)
+
+
+def time_b8(path, label, rounds=3):
+    """B8 of the rs_sfm_tpu_torch that `import` finds, on the inputs that
+    `chip_smoke.py --save-b8 PATH` saved: bit-exact to its plain version,
+    then per input `rounds` medians of 20 CUDA-event timings and the
+    device ops of a call.  Run it from another checkout (the parent's) to
+    time that tree's B8 on the same inputs, in the same chip call:
+
+        cd PARENT && python3 -c "import runpy; runpy.run_path(
+            'CHANGE/chip_smoke.py')['time_b8']('INPUTS', 'parent')"
+    """
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import zbuffer as kz
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for what, args in torch.load(path).items():
+        args = [a.to(dev) for a in args]
+        check(splat_exact(kz.zbuffer_splat(*args), args),
+              f"{label}: B8 bit-exact to plain on the {what} input")
+        ms = [time_ms(lambda args=args: kz.zbuffer_splat(*args))
+              for _ in range(rounds)]
+        split = op_split(lambda args=args: kz.zbuffer_splat(*args))
+        print(f"[b8 {label}] {what}: bit-exact to plain; ms "
+              + ", ".join(f"{m:.4f}" for m in ms) + "; device ops a call: "
+              + "; ".join(f"{name.split('(')[0]} x{count:g} {op_ms:.4f} ms"
+                          for name, (count, op_ms) in split.items()),
+              flush=True)
+
+
+def phase_rectify(dev, e2e, castle, save_b8=None):
     """B8 and the rectification engines at full HD on the last e2e pass's
-    image, depth map and scanline poses; returns ({kernel: launches} of one
-    backproject(method="pallas") call, B8's record)."""
+    image, depth map and scanline poses, and B8 on the castle's frame 1
+    (its RS image, true depth and true scanline poses); returns
+    ({kernel: launches} of one backproject(method="pallas") call, B8's
+    record on the e2e input).  With `save_b8`, B8's two inputs are also
+    saved there for time_b8."""
     import torch
 
     from rs_sfm_tpu_torch.geom.rspose import scanline_poses
@@ -1437,22 +1632,55 @@ def phase_rectify(dev, e2e):
     check(launches == {**{k: 0 for k in wrap}, "zbuffer_splat": 1},
           f"rectify pallas launches {launches}")
 
-    # B8 on that call's inputs against its plain version: bit-exact.
-    args = splat_inputs(image, depth, r, t, intr)
-    gs_k, hit_k = kz.zbuffer_splat(*args)
-    gs_p, hit_p = kz.zbuffer_splat_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(hit_k, hit_p) and torch.equal(gs_k, gs_p),
-          "B8 zbuffer_splat bit-exact to plain")
-    live = int(torch.isfinite(args[2]).sum())
+    # B8 on both inputs against its plain version: bit-exact.
+    inputs = {
+        "e2e": splat_inputs(image, depth, r, t, intr),
+        "castle": splat_inputs(castle.i1, castle.true_depth, castle.poses_r,
+                               castle.poses_t, castle.intr)}
+    ms, hits = {}, {}
+    for what, args in inputs.items():
+        out = kz.zbuffer_splat(*args)
+        check(splat_exact(out, args),
+              f"B8 zbuffer_splat bit-exact to plain on the {what} input")
+        live = int((kz.splat_targets(*args[:3])[0] < n).sum())
+        hits[what] = int(out[1].sum())
+        ms[what] = time_ms(lambda args=args: kz.zbuffer_splat(*args))
+        split = op_split(lambda args=args: kz.zbuffer_splat(*args))
+        bound_ms = bound(splat_bytes(n, hits[what]), OPS_ZBUFFER * n)[0]
+        print(f"[8 rectify] B8 zbuffer_splat {H}x{W} on the {what} input: "
+              f"bit-exact to plain; {live} live splats, {hits[what]} hit "
+              f"targets, {live / max(hits[what], 1):.4f} splats a hit "
+              f"target; {ms[what]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms[what]:.1f} % of it reached); "
+              f"device ops a call (torch.profiler, 20 calls): "
+              + "; ".join(f"{name} x{count:g} {op_ms:.4f} ms"
+                          for name, (count, op_ms) in split.items()),
+              flush=True)
+    if save_b8:
+        torch.save({k: [a.cpu() for a in v] for k, v in inputs.items()},
+                   save_b8)
+    # Back to back, with no synchronisation between: a key left behind by
+    # the first call would show in the second.
+    a, b = inputs["castle"], inputs["e2e"]
+    first = kz.zbuffer_splat(*a)
+    second = kz.zbuffer_splat(*b)
+    for got, args, what in ((first, a, "castle"), (second, b, "e2e")):
+        check(splat_exact(got, args),
+              f"B8 back to back: the {what} call bit-exact to plain")
+
+    args = inputs["e2e"]
+    gs_k, _ = kz.zbuffer_splat(*args)
+    gs_p, _ = kz.zbuffer_splat_plain(*args)
     # Yardstick (never called by the port): the packed24 engine's conflict
     # resolution, key packing and its scatter_reduce_, on the same splats.
     flat, d = kz.splat_targets(*args[:3])
     colors = image.reshape(n, 3)
-    rec = record(float(torch.max(torch.abs(gs_k - gs_p))),
-                 time_ms(lambda: kz.zbuffer_splat(*args)),
+    rec = record(float(torch.max(torch.abs(gs_k - gs_p))), ms["e2e"],
                  time_ms(lambda: kz.zbuffer_splat_plain(*args)),
-                 4 * 3 * n + 4 * 3 * n + 4 * 3 * n + n, OPS_ZBUFFER * n)
+                 splat_bytes(n, hits["e2e"]), OPS_ZBUFFER * n)
+    # The bound as first counted, with every source's colour read: 37
+    # bytes a pixel.
+    bound37_ms = bound(37 * n, OPS_ZBUFFER * n)[0]
     packed24_ms = time_ms(lambda: _resolve_packed24(flat, d, colors, n,
                                                     image))
     # Library yardstick of the min stage only: one scatter_reduce_ "amin"
@@ -1462,16 +1690,17 @@ def phase_rectify(dev, e2e):
                       dtype=torch.int64, device=dev)
     zbuf.scatter_reduce_(0, flat, keys, "amin")
     check(torch.equal(zbuf[:n].reshape(H, W)
-                      != torch.iinfo(torch.int64).max, hit_k),
+                      != torch.iinfo(torch.int64).max, bp.scattered),
           "B8 scatter_reduce_ amin of the packed keys hits B8's targets")
     rec["library_ms"] = time_ms(
         lambda: zbuf.scatter_reduce_(0, flat, keys, "amin"))
-    print(f"[8 rectify] B8 zbuffer_splat {H}x{W} on the e2e depth map "
-          f"({live} live splats, {int(hit_k.sum())} hit targets): bit-exact "
-          f"to plain; {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, "
-          f"packed24 resolve {packed24_ms:.4f} ms, scatter_reduce_ amin of "
-          f"the packed keys (min stage only) {rec['library_ms']:.4f} ms, "
-          f"bound {rec['bound_ms']:.4f} ms", flush=True)
+    print(f"[8 rectify] B8 zbuffer_splat {H}x{W} on the e2e input: "
+          f"{rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, packed24 "
+          f"resolve {packed24_ms:.4f} ms, scatter_reduce_ amin of the packed "
+          f"keys (min stage only) {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}"
+          f" % of it reached; at 37 bytes a pixel {bound37_ms:.4f} ms, "
+          f"{100 * bound37_ms / rec['ms']:.1f} %)", flush=True)
 
     engines = {}
     for method in ("packed24", "packed", "sort", "scatter", "pallas"):
@@ -1511,6 +1740,11 @@ def phase_rectify(dev, e2e):
 
 
 def main():
+    save_b8 = None
+    if sys.argv[1:2] == ["--save-b8"] and len(sys.argv) == 3:
+        save_b8 = sys.argv[2]
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: chip_smoke.py [--save-b8 PATH]")
     if not (ROOT / "rs_sfm_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: rs_sfm_tpu_torch/ not found beside this "
                          "script; run it from a checkout of the repository")
@@ -1526,8 +1760,10 @@ def main():
     phase_slice(dev)
     phase_parity(dev)
     launches, pass_ms, e2e = phase_e2e(dev)
+    castle = phase_castle(dev)
     launches["lm_sums_multi"] = phase_sharded(dev)["lm_sums_multi"]
-    rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e)
+    rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e,
+                                                              castle, save_b8)
     launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")

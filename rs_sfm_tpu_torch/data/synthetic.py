@@ -1,0 +1,338 @@
+"""Procedural synthetic rolling-shutter renderer (port of
+rs_sfm_tpu/data/synthetic.py: the castle scene, the ray-cast render of a
+two-frame RS pair with its ground truth, and the photometric nuisances'
+exposure, tone-curve, vignette and noise options).
+
+The scene is a set of textured rectangles with closed-form ray
+intersection, so every pixel of every scanline renders under its own pose
+in one batched pass.  Conventions, as the JAX module's:
+
+  * Poses are world->camera: X_cam = R X_world + t (src/rsframe.cc:687-708).
+  * Scanline i of frame 1 is at normalized time τ = γ·i/H, of frame 2 at
+    τ = 1 + γ·i/H, with pose R = R₀(I + β(τ)·ŵ), t = t₀ + β(τ)·v and
+    β(τ) = (2/(2+k))(τ + ½kτ²) (calculate_camera_trajectory.m:17-26).
+  * Void (sky) pixels get colour RGB(1,1,1)/255 (the mask value of the
+    reference's backProject, src/rsframe.cc:815), zero depth and zero
+    unprojection coordinates.
+
+Device: the scene's tensors decide where a render runs.  A scene made with
+no device, or given as numpy arrays, goes to the CUDA device, and without
+one this raises; only tensors on the CPU render on the CPU (the tests).
+
+Colour carries a hash texture (`_hash_noise`): `sin` of arguments up to a
+few thousand times 43758.5, so in float32 one ulp of `sin` moves the
+texture by about 1e-2.  Geometry (depth, unprojection, poses, hit mask)
+does not depend on it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from rs_sfm_tpu_torch.flow.dense import as_device_tensor
+from rs_sfm_tpu_torch.geom import so3
+from rs_sfm_tpu_torch.geom.camera import Intrinsics, true_div
+from rs_sfm_tpu_torch.geom.rspose import beta1, beta2
+from rs_sfm_tpu_torch.ops import linalg
+
+
+class Scene(NamedTuple):
+    """Textured rectangles: X(a, b) = origin + a·edge1 + b·edge2, a,b ∈ [0,1].
+
+    velocity (optional): per-rectangle world velocity (units per frame
+    interval) of independently moving objects; None = static scene.
+    periodic: the periodic textures of the JAX package's repetitive scene,
+    which this port does not render (None only).
+    """
+
+    origins: torch.Tensor     # (P, 3)
+    edge1: torch.Tensor       # (P, 3)
+    edge2: torch.Tensor       # (P, 3)
+    base_color: torch.Tensor  # (P, 3) in [0, 1]
+    velocity: Optional[torch.Tensor] = None  # (P, 3) or None (static)
+    periodic: Optional[torch.Tensor] = None  # must be None
+
+
+class SyntheticFrame(NamedTuple):
+    rs_image: torch.Tensor      # (H, W, 3) in [0, 1]
+    gs_image: torch.Tensor      # (H, W, 3) at this frame's scanline-0 pose
+    rs_depth: torch.Tensor      # (H, W) camera z of each RS pixel (0 = void)
+    gs_depth: torch.Tensor      # (H, W)
+    rs_unproject: torch.Tensor  # (H, W, 3) world coords (0 = void)
+    gs_unproject: torch.Tensor  # (H, W, 3)
+    poses_r: torch.Tensor       # (H, 3, 3) world->camera per scanline (GT)
+    poses_t: torch.Tensor       # (H, 3)
+    mover_mask: Optional[torch.Tensor] = None  # (H, W) bool: hit a mover
+
+
+class SyntheticPair(NamedTuple):
+    frame1: SyntheticFrame
+    frame2: SyntheticFrame
+    intrinsics: Intrinsics
+    gamma: float
+    k: float
+    v: torch.Tensor  # (3,) world units per frame interval
+    w: torch.Tensor  # (3,) radians per frame interval
+
+
+# The castle: ground, back wall, two building faces, a central tower and a
+# slanted roof piece (origin, edge1, edge2, base colour).
+_CASTLE = [
+    ([-8.0, 2.0, 0.5], [16.0, 0.0, 0.0], [0.0, 0.0, 14.0],
+     [0.45, 0.40, 0.30]),
+    ([-8.0, -5.0, 11.0], [16.0, 0.0, 0.0], [0.0, 7.0, 0.0],
+     [0.55, 0.50, 0.45]),
+    ([-4.5, -3.0, 6.0], [3.2, 0.0, 0.0], [0.0, 5.0, 0.0],
+     [0.60, 0.45, 0.35]),
+    ([0.8, -2.0, 7.5], [3.5, 0.0, 0.0], [0.0, 4.0, 0.0],
+     [0.40, 0.50, 0.60]),
+    ([-0.7, -2.5, 4.5], [1.1, 0.0, 0.0], [0.0, 4.5, 0.0],
+     [0.55, 0.55, 0.40]),
+    ([0.4, -2.2, 4.8], [1.6, -0.4, 1.6], [0.0, 1.2, 0.4],
+     [0.62, 0.38, 0.30]),
+]
+
+
+def castle_scene(dtype=torch.float32, device=None) -> Scene:
+    """Default scene: a castle-like arrangement of facades, ground and
+    tower (synthetic.py:85).  World frame = frame-1 scanline-0 camera frame
+    (x right, y down, z forward); mean depth about 6."""
+    cols = [as_device_tensor(np.array([r[i] for r in _CASTLE]), device, dtype)
+            for i in range(4)]
+    return Scene(origins=cols[0], edge1=cols[1], edge2=cols[2],
+                 base_color=cols[3])
+
+
+def _hash_noise(u, v, seed):
+    """Value noise on a texel grid: bilinear interpolation (smoothstep
+    weights) of a sin-fract hash."""
+
+    def hash2(i, j):
+        s = torch.sin(i * 12.9898 + j * 78.233 + seed) * 43758.5453
+        return s - torch.floor(s)
+
+    iu = torch.floor(u)
+    iv = torch.floor(v)
+    fu = u - iu
+    fv = v - iv
+    fu = fu * fu * (3.0 - 2.0 * fu)
+    fv = fv * fv * (3.0 - 2.0 * fv)
+    h00 = hash2(iu, iv)
+    h10 = hash2(iu + 1.0, iv)
+    h01 = hash2(iu, iv + 1.0)
+    h11 = hash2(iu + 1.0, iv + 1.0)
+    return ((1 - fu) * (1 - fv) * h00 + fu * (1 - fv) * h10
+            + (1 - fu) * fv * h01 + fu * fv * h11)
+
+
+def _texture(prim_id: int, a, b, base_color):
+    """Procedural texture: multi-scale value noise + soft stripes, bounded
+    away from black and from the void sentinel."""
+    phase = torch.tensor(float(prim_id), dtype=a.dtype, device=a.device)
+    n1 = _hash_noise(a * 9.0, b * 9.0, phase * 17.0) - 0.5
+    n2 = _hash_noise(a * 27.0, b * 27.0, phase * 31.0 + 5.0) - 0.5
+    f1 = torch.sin(2.0 * math.pi * (7.0 + 2.0 * phase) * a + phase * 1.7)
+    checker = (torch.sin(2.0 * math.pi * 3.0 * a)
+               * torch.sin(2.0 * math.pi * 3.0 * b))
+    mod = 0.34 * n1 + 0.22 * n2 + 0.10 * f1 + 0.10 * checker
+    tint = torch.tensor([1.0, 0.85, 0.7], dtype=a.dtype, device=a.device)
+    col = base_color * (0.75 + mod[..., None] * tint)
+    return torch.clamp(col, 0.02, 0.98)
+
+
+def _dot(x, n):
+    """x · n over the last axis, summed in index order."""
+    return x[..., 0] * n[0] + x[..., 1] * n[1] + x[..., 2] * n[2]
+
+
+def _intersect(scene: Scene, origin, direction, time=None):
+    """Nearest-hit ray casting against all rectangles (synthetic.py:303).
+
+    origin, direction: (..., 3) world rays, the direction scaled so that
+    the camera z equals the ray parameter; time: (...,) per-ray capture
+    time (frame intervals) for moving primitives.
+
+    Returns (depth (...,), world point (..., 3), colour (..., 3), hit
+    (...,), mover (...,) bool: the nearest hit was a moving primitive).
+    """
+    if scene.periodic is not None:
+        raise NotImplementedError("periodic textures are not ported")
+    dtype = origin.dtype
+    shape = origin.shape[:-1]
+    best_t = torch.full(shape, torch.inf, dtype=dtype, device=origin.device)
+    best_color = torch.ones(shape + (3,), dtype=dtype,
+                            device=origin.device) / 255.0
+    best_mover = torch.zeros(shape, dtype=torch.bool, device=origin.device)
+    num_prims = scene.origins.shape[0]
+    if scene.velocity is None or time is None:
+        moving_flags = [False] * num_prims
+    else:
+        moving_flags = (scene.velocity != 0.0).any(dim=1).tolist()
+    for p in range(num_prims):
+        p0 = scene.origins[p]
+        if moving_flags[p]:
+            p0 = p0 + time[..., None] * scene.velocity[p]
+        e1 = scene.edge1[p]
+        e2 = scene.edge2[p]
+        n = torch.linalg.cross(e1, e2)
+        denom = _dot(direction, n)
+        safe = torch.where(torch.abs(denom) < 1e-12, torch.ones_like(denom),
+                           denom)
+        t = _dot(p0 - origin, n) / safe
+        hit_pt = origin + t[..., None] * direction
+        rel = hit_pt - p0
+        a = _dot(rel, e1) / _dot(e1, e1)
+        b = _dot(rel, e2) / _dot(e2, e2)
+        ok = ((torch.abs(denom) >= 1e-12) & (t > 1e-3)
+              & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0))
+        closer = ok & (t < best_t)
+        color = _texture(p, a, b, scene.base_color[p])
+        best_color = torch.where(closer[..., None], color, best_color)
+        best_t = torch.where(closer, t, best_t)
+        best_mover = best_mover | closer if moving_flags[p] else (
+            best_mover & ~closer)
+    hit = torch.isfinite(best_t)
+    depth = torch.where(hit, best_t, torch.zeros_like(best_t))
+    world = torch.where(hit[..., None], origin + best_t[..., None] * direction,
+                        torch.zeros_like(origin))
+    return depth, world, best_color, hit, best_mover
+
+
+def _row_poses(r0, t0, v, w, betas):
+    """Poses R = R₀(I + β·ŵ), t = t₀ + β·v for a vector of β values."""
+    n = betas.shape[0]
+    r = torch.einsum("ij,njk->nik", r0,
+                     so3.exp_first_order(w.expand(n, 3), scale=betas))
+    t = t0[None, :] + betas[:, None] * v[None, :]
+    return r, t
+
+
+def _render(scene, intr: Intrinsics, rows, cols, r_rows, t_rows, dtype,
+            times=None):
+    """Render an image where row y uses pose (r_rows[y], t_rows[y]);
+    broadcast single poses render a global-shutter image.  times: optional
+    (H,) per-scanline capture times for moving primitives.
+
+    Returns (colour, depth, world point, mover)."""
+    dev = r_rows.device
+    ys, xs = torch.meshgrid(torch.arange(rows, dtype=dtype, device=dev),
+                            torch.arange(cols, dtype=dtype, device=dev),
+                            indexing="ij")
+    d_cam = torch.stack([true_div(xs - intr.cx, intr.fx),
+                         true_div(ys - intr.cy, intr.fy),
+                         torch.ones_like(xs)], dim=-1)  # (H, W, 3)
+    # Invert X_cam = R X + t exactly (R = I + βŵ is only orthonormal to
+    # first order): camera centre o = −R⁻¹t, world direction d = R⁻¹ d_cam
+    # (d_cam.z = 1, so the ray parameter is the camera depth).
+    r_inv = linalg.gauss_inv(r_rows)  # (H, 3, 3)
+    o = -torch.einsum("hij,hj->hi", r_inv, t_rows)  # (H, 3)
+    d_world = torch.einsum("hij,hwj->hwi", r_inv, d_cam)  # (H, W, 3)
+    origin = o[:, None, :].expand(d_world.shape)
+    tgrid = None
+    if times is not None:
+        tgrid = times[:, None].expand(d_world.shape[:2])
+    depth, world, color, _, mover = _intersect(scene, origin, d_world,
+                                               time=tgrid)
+    return color, depth, world, mover
+
+
+def render_pair(scene: Scene, intr: Intrinsics, rows: int, cols: int, *,
+                gamma: float, k: float, v, w, r0=None, t0=None,
+                dtype=torch.float32) -> SyntheticPair:
+    """Render a two-frame RS pair with complete ground truth
+    (synthetic.py:406).
+
+    Args:
+      scene: the world geometry; its tensors' device is where the render
+        runs (numpy arrays go to the CUDA device).
+      intr: pinhole intrinsics; rows, cols: image size.
+      gamma: readout ratio; k: acceleration factor of the motion model.
+      v: (3,) linear velocity, w: (3,) angular velocity (radians), per
+        frame interval.
+      r0, t0: optional initial world->camera pose (default identity, zero).
+
+    Returns a SyntheticPair with RS/GS images, depths, unprojection maps
+    and per-scanline poses of both frames.
+    """
+    scene = Scene(*(None if f is None else as_device_tensor(f, dtype=dtype)
+                    for f in scene))
+    dev = scene.origins.device
+    v = torch.as_tensor(v, dtype=dtype, device=dev)
+    w = torch.as_tensor(w, dtype=dtype, device=dev)
+    r0 = (torch.eye(3, dtype=dtype, device=dev) if r0 is None
+          else torch.as_tensor(r0, dtype=dtype, device=dev))
+    t0 = (torch.zeros(3, dtype=dtype, device=dev) if t0 is None
+          else torch.as_tensor(t0, dtype=dtype, device=dev))
+    idx = torch.arange(rows, dtype=dtype, device=dev)
+    frames = []
+    for beta_fn in (beta1, beta2):
+        betas = beta_fn(idx, rows, gamma, k)
+        r_rows, t_rows = _row_poses(r0, t0, v, w, betas)
+        rs_img, rs_depth, rs_unproj, rs_mover = _render(
+            scene, intr, rows, cols, r_rows, t_rows, dtype, times=betas)
+        # The GS image at this frame's scanline-0 pose and instant.
+        gs_img, gs_depth, gs_unproj, _ = _render(
+            scene, intr, rows, cols, r_rows[0].expand(rows, 3, 3),
+            t_rows[0].expand(rows, 3), dtype, times=betas[0].expand(rows))
+        frames.append(SyntheticFrame(
+            rs_image=rs_img, gs_image=gs_img, rs_depth=rs_depth,
+            gs_depth=gs_depth, rs_unproject=rs_unproj,
+            gs_unproject=gs_unproj, poses_r=r_rows, poses_t=t_rows,
+            mover_mask=rs_mover))
+    return SyntheticPair(frame1=frames[0], frame2=frames[1], intrinsics=intr,
+                         gamma=gamma, k=k, v=v, w=w)
+
+
+def apply_photometric(image, generator: Optional[torch.Generator] = None, *,
+                      exposure=1.0, gamma_curve=1.0, vignette=0.0,
+                      noise_sigma=0.0, noise=None, blur=False,
+                      motion_blur_px=0.0, jpeg_quality=0, demosaic=False):
+    """Photometric nuisances (synthetic.py:511): a global exposure gain, a
+    tone curve, radial vignetting and Gaussian sensor noise.
+
+    Args:
+      image: (H, W, 3) in [0, 1]; a tensor stays on its device, anything
+        else goes to the CUDA device.
+      generator: torch.Generator on the image's device for the noise.
+      noise: optional (H, W, 3) standard-normal draws that replace the
+        generator's (the tests hand over the JAX package's).
+
+    The blur, motion-blur, JPEG and demosaic options are not ported and
+    raise NotImplementedError.
+    """
+    if blur or motion_blur_px > 0.0 or jpeg_quality or demosaic:
+        raise NotImplementedError(
+            "apply_photometric: only exposure, gamma_curve, vignette and "
+            "noise_sigma are ported")
+    img = as_device_tensor(image)
+    dtype = img.dtype
+    h, w = img.shape[:2]
+    out = img * torch.tensor(exposure, dtype=dtype, device=img.device)
+    if gamma_curve != 1.0:
+        out = torch.clamp(out, 1e-6, 1.0) ** torch.tensor(
+            gamma_curve, dtype=dtype, device=img.device)
+    if vignette:
+        ys, xs = torch.meshgrid(
+            torch.arange(h, dtype=dtype, device=img.device),
+            torch.arange(w, dtype=dtype, device=img.device), indexing="ij")
+        r2 = (true_div(xs - w / 2, w / 2) ** 2
+              + true_div(ys - h / 2, h / 2) ** 2) / 2.0
+        out = out * (1.0 - torch.tensor(vignette, dtype=dtype,
+                                        device=img.device) * r2)[..., None]
+    if noise_sigma:
+        if noise is None:
+            noise = torch.randn(out.shape, generator=generator, dtype=dtype,
+                                device=img.device)
+        out = out + noise_sigma * noise.to(dtype)
+    out = torch.clamp(out, 0.0, 1.0)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def default_intrinsics(rows: int, cols: int) -> Intrinsics:
+    """Square-pixel intrinsics with ~53° horizontal FoV, centred."""
+    f = float(cols)
+    return Intrinsics(fx=f, fy=f, cx=cols / 2.0 - 0.5, cy=rows / 2.0 - 0.5)

@@ -279,20 +279,20 @@ def pyramid_levels(h: int, w: int, levels: int) -> int:
     return count
 
 
-def _as_tensor(image, device=None):
-    """`image` as a float32 tensor.  A tensor stays on its device, which is
-    the caller's choice (the CPU tests pass CPU tensors); anything else goes
-    to `device`, by default the CUDA device, and without one this raises
-    rather than running the flow on the CPU unasked."""
-    if not torch.is_tensor(image) and device is None:
+def as_device_tensor(x, device=None, dtype=None):
+    """`x` as a tensor (of `dtype`, if given).  A tensor stays on its
+    device, which is the caller's choice (the CPU tests pass CPU tensors);
+    anything else goes to `device`, by default the CUDA device, and without
+    one this raises rather than running on the CPU unasked."""
+    if not torch.is_tensor(x) and device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "dense flow: no CUDA device for a non-tensor image; pass "
-                "torch tensors on the device to run on (CPU tensors run the "
-                "kernels' plain versions)")
+                "no CUDA device for a non-tensor input; pass torch tensors "
+                "on the device to run on (CPU tensors run the kernels' plain "
+                "versions)")
         device = torch.device("cuda", torch.cuda.current_device())
-    t = torch.as_tensor(image, device=device)
-    return t if t.dtype == torch.float32 else t.to(torch.float32)
+    t = torch.as_tensor(x, device=device)
+    return t if dtype is None or t.dtype == dtype else t.to(dtype)
 
 
 def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
@@ -312,8 +312,8 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
     if prior is not None:
         raise NotImplementedError("the flow prior (relock) is not ported")
     check_supported(cfg)
-    i1 = _to_gray(_as_tensor(image1))
-    i2 = _to_gray(_as_tensor(image2, i1.device))
+    i1 = _to_gray(as_device_tensor(image1, dtype=torch.float32))
+    i2 = _to_gray(as_device_tensor(image2, i1.device, torch.float32))
     if cfg.lcn > 0.0:
         i1 = _local_contrast_norm(i1, cfg.lcn)
         i2 = _local_contrast_norm(i2, cfg.lcn)
@@ -399,8 +399,8 @@ def flow_forward_backward(image1, image2,
     if prior is not None:
         raise NotImplementedError("the flow prior (relock) is not ported")
     mark = timer if timer is not None else (lambda _name: None)
-    image1 = _as_tensor(image1)
-    image2 = _as_tensor(image2, image1.device)
+    image1 = as_device_tensor(image1, dtype=torch.float32)
+    image2 = as_device_tensor(image2, image1.device, torch.float32)
     fw_aux = dense_flow_aux(image1, image2, cfg)
     fw = fw_aux.flow
     mark("flow_forward")

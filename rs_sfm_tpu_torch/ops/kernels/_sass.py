@@ -72,13 +72,51 @@ def loops(insns: list[tuple[int, str]], marker: str):
     return sorted(found, key=lambda f: f[1])
 
 
-def report(library: str, kernel: str, marker: str) -> list[str]:
+def _sass(library: str):
     tool = _cuobjdump()
     if tool is None:
+        return None
+    return subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def opcode_counts(library: str, kernel: str):
+    """{function: {full opcode: count}} of the kernel functions named like
+    `kernel`, or None without cuobjdump."""
+    sass = _sass(library)
+    if sass is None:
+        return None
+    counts = {}
+    for name, insns in functions(sass).items():
+        if kernel not in name:
+            continue
+        found: dict[str, int] = {}
+        for _, text in insns:
+            op = _opcode(text)
+            found[op] = found.get(op, 0) + 1
+        counts[name] = found
+    return counts
+
+
+def opcodes(library: str, kernel: str, prefix: str) -> list[str]:
+    """'function: opcode xN' for each full opcode starting with `prefix`
+    (e.g. "RED" or "ATOM") in the kernel functions named like `kernel`."""
+    counts = opcode_counts(library, kernel)
+    if counts is None:
+        return ["cuobjdump not found: SASS not read"]
+    lines = []
+    for name, found in counts.items():
+        ops = sorted((op, c) for op, c in found.items()
+                     if op.startswith(prefix))
+        lines.append(f"{name}: " + (", ".join(f"{op} x{c}" for op, c in ops)
+                                    or f"no {prefix}"))
+    return lines or [f"{kernel}: not found in {library}"]
+
+
+def report(library: str, kernel: str, marker: str) -> list[str]:
+    sass = _sass(library)
+    if sass is None:
         return ["cuobjdump not found: SASS not counted"]
-    sass = subprocess.run([tool, "-sass", library],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
     lines = []
     for name, insns in functions(sass).items():
         if kernel not in name:

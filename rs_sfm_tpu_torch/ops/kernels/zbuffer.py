@@ -7,6 +7,12 @@ Each source pixel splats to its rounded target; per target the minimum
 depth wins, ties to the lowest source id, and the winner's colour is
 written.  The TPU kernel's target-side window search, which misses the
 sources that stray from their block's consensus, is not reproduced.
+
+On the card a call is two kernels, the splat and the resolve, on a key
+buffer that this module keeps per device: it is filled with EMPTY once,
+when it is allocated, and the resolve puts EMPTY back into every key it
+found set, so no call clears it.  The buffer lives as long as the
+process, at the largest image seen (8 bytes a pixel: 16.6 MB at full HD).
 """
 
 from __future__ import annotations
@@ -72,11 +78,45 @@ def zbuffer_splat_plain(target_x, target_y, depth, colors):
 def _lib():
     lib = _build.load("zbuffer")
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.zbuffer_splat_launch.argtypes = [p, p, p, p, i, i, p, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.zbuffer_splat_launch.argtypes = [p, p, p, p, i, i, ll, ll, ll, ll,
+                                             p, p, p, p]
         lib.zbuffer_splat_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+# {device index: (int64 key buffer, event)}: every key is EMPTY (all bits
+# set) once the work queued before the event's last record is done.  Each
+# call waits on the event and records it again after its resolve, so calls
+# on any streams take the buffer in turn.
+_KEYS: dict = {}
+
+
+def _keys(dev, stream, n: int):
+    """(key buffer, event) of `dev` with room for n keys, ordered on
+    `stream` after every earlier call; a larger buffer is allocated and
+    filled with EMPTY on `stream` when needed."""
+    held = _KEYS.get(dev.index)
+    if held is not None:
+        keys, done = held
+        stream.wait_event(done)
+        if keys.numel() >= n:
+            return held
+        # The old buffer goes back to the allocator only once the last
+        # call that used it, on whatever stream, has ended.
+        done.synchronize()
+    with torch.cuda.stream(stream):
+        keys = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    _KEYS[dev.index] = (keys, torch.cuda.Event())
+    return _KEYS[dev.index]
+
+
+def _rows(t, inner: int):
+    """t itself when its last `inner` elements of each row are contiguous
+    (the kernel takes a row stride), else a contiguous copy."""
+    want = (1,) if inner == 1 else (3, 1)
+    return t if tuple(t.stride()[1:]) == want else t.contiguous()
 
 
 def zbuffer_splat(target_x, target_y, depth, colors):
@@ -84,13 +124,15 @@ def zbuffer_splat(target_x, target_y, depth, colors):
 
     Args:
       target_x, target_y: (H, W) float32 target coordinates per source pixel
-        (non-finite or outside the image after rounding = no splat).
+        (non-finite or outside the image after rounding = no splat).  Rows
+        may be any distance apart (column-slice views are read in place).
       depth: (H, W) float32 target-camera depth per source (non-finite = no
         splat); the minimum wins, ties to the lowest source id.
       colors: (H, W, 3) float32 source colours.
 
-    On CUDA tensors this launches the kernels of csrc/zbuffer.cu (counted in
-    `zbuffer_splat.launches`); on CPU tensors it runs `zbuffer_splat_plain`.
+    On CUDA tensors this launches the two kernels of csrc/zbuffer.cu (one
+    count in `zbuffer_splat.launches`); on CPU tensors it runs
+    `zbuffer_splat_plain`.
 
     Returns (gs_image (H, W, 3) float32, scattered (H, W) bool).
     """
@@ -111,21 +153,27 @@ def zbuffer_splat(target_x, target_y, depth, colors):
         return zbuffer_splat_plain(target_x, target_y, depth, colors)
     if depth.device.type != "cuda":
         raise ValueError(f"unsupported device {depth.device}")
-    if h * w >= 2 ** 32:
-        raise ValueError("the source id must fit in 32 bits")
-    tx, ty, d, c = (t.contiguous() for t in (target_x, target_y, depth,
-                                               colors))
+    if h * w >= 2 ** 32 or h >= 2 ** 16:
+        raise ValueError("the source id must fit in 32 bits and the rows in "
+                         "a grid dimension (h < 65536)")
+    tx, ty, d = (_rows(t, 1) for t in (target_x, target_y, depth))
+    c = _rows(colors, 3)
     lib = _lib()
     dev = depth.device
     with torch.cuda.device(dev):
-        keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        keys, done = _keys(dev, stream, h * w)
         gs = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
         hit = torch.empty((h, w), dtype=torch.bool, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(lib.zbuffer_splat_launch(
+        err = lib.zbuffer_splat_launch(
             tx.data_ptr(), ty.data_ptr(), d.data_ptr(), c.data_ptr(), h, w,
-            keys.data_ptr(), gs.data_ptr(), hit.data_ptr(), stream),
-            "zbuffer_splat_launch")
+            tx.stride(0), ty.stride(0), d.stride(0), c.stride(0),
+            keys.data_ptr(), gs.data_ptr(), hit.data_ptr(), stream.cuda_stream)
+        done.record(stream)
+        if err != 0:
+            # A resolve that did not run may have left keys set.
+            _KEYS.pop(dev.index, None)
+        _build.check(err, "zbuffer_splat_launch")
     zbuffer_splat.launches += 1
     return gs, hit
 

@@ -1,9 +1,11 @@
 """Batched small-matrix linear algebra (port of rs_sfm_tpu/ops/linalg.py:24-123).
 
 Stacks of tiny symmetric matrices ((..., n, n), n ≤ 9) for the minimal
-solver: cyclic-Jacobi `eigh_small` and the `null_vector` built on it.  The
-rotation sequence and arithmetic follow the JAX version step for step, so
-the two agree to float64 rounding.  The pivoted Gauss solve, determinants
+solver: cyclic-Jacobi `eigh_small` and the `null_vector` built on it, and
+the pivoted Gauss-Jordan `gauss_solve` / `gauss_inv` (ops/linalg.py:125-197)
+that the synthetic renderer inverts its scanline rotations with.  The
+rotation and elimination sequences and their arithmetic follow the JAX
+version step for step, so the two agree to float64 rounding.  Determinants
 and polynomial roots (the k-root path) are not ported yet.
 """
 
@@ -79,3 +81,50 @@ def null_vector(z):
     ztz = torch.matmul(z.transpose(-1, -2), z)
     _, v = eigh_small(ztz)
     return v[..., :, 0]
+
+
+def _pivot_swap(a, k: int):
+    """Swap row k with the largest-|a[:, k]| row at or below it (batched;
+    the first such row on ties, as jnp.argmax)."""
+    n = a.shape[-2]
+    row_ids = torch.arange(n, device=a.device)
+    col = torch.where(row_ids >= k, torch.abs(a[..., :, k]),
+                      -torch.ones_like(a[..., :, k]))
+    piv = torch.argmax(col, dim=-1)
+    index = piv[..., None, None].expand(*a.shape[:-2], 1, a.shape[-1])
+    p_row = torch.take_along_dim(a, index, dim=-2)[..., 0, :]
+    k_row = a[..., k, :].clone()
+    a = a.clone()
+    a[..., k, :] = p_row
+    # The old row k goes to the pivot's place (a no-op when piv == k).
+    mask = row_ids[:, None] == piv[..., None, None]
+    return torch.where(mask, k_row[..., None, :], a)
+
+
+def gauss_solve(a, b):
+    """Solve a @ x = b for tiny batched systems by Gauss-Jordan elimination
+    with partial pivoting: a (..., n, n), b (..., n) or (..., n, m); x has
+    b's shape."""
+    vec = b.dim() == a.dim() - 1
+    if vec:
+        b = b[..., None]
+    n = a.shape[-1]
+    row_ids = torch.arange(n, device=a.device)
+    aug = torch.cat([a, b], dim=-1)
+    for k in range(n):
+        aug = _pivot_swap(aug, k)
+        pivval = aug[..., k, k]
+        safe = torch.where(pivval == 0.0, torch.ones_like(pivval), pivval)
+        aug[..., k, :] = aug[..., k, :] / safe[..., None]
+        factors = torch.where(row_ids == k, torch.zeros_like(aug[..., :, k]),
+                              aug[..., :, k])
+        aug = aug - factors[..., None] * aug[..., k, :][..., None, :]
+    x = aug[..., n:]
+    return x[..., 0] if vec else x
+
+
+def gauss_inv(a):
+    """Inverse of tiny batched matrices (..., n, n) via Gauss-Jordan."""
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+    return gauss_solve(a, eye)

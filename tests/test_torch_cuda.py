@@ -292,6 +292,137 @@ def test_zbuffer_kernel_matches_plain(cuda_device, h, w):
     assert 0 < int(hit.sum()) < h * w
 
 
+def _splat_args(h, w, seed, device, *, spread=2.0, base=None):
+    """(tx, ty, depth, colors) of a dense splat field on the card: each
+    source near its own pixel (+-`spread` px, so targets collide at about
+    the rate of a rectification's depth edges), depths on a coarse grid of
+    values (ties) that include -0.0 and +0.0, and a few sources that are
+    not finite or leave the image.  With `base` (h, w + pad), every input
+    is a column slice of a wider tensor starting at column 1, so no row
+    starts 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    tx = (xs + rng.uniform(-spread, spread, (h, w))).astype(np.float32)
+    ty = (ys + rng.uniform(-spread, spread, (h, w))).astype(np.float32)
+    d = rng.choice(np.float32([-0.0, 0.0, 1.5, 2.0, 2.0, 3.25]),
+                   size=(h, w))
+    d[rng.uniform(size=(h, w)) < 0.02] = np.nan
+    tx[rng.uniform(size=(h, w)) < 0.02] = np.inf
+    colors = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    arrays = [tx, ty, d, colors]
+    if base is not None:
+        wide = []
+        for a in arrays:
+            full = np.zeros((h, w + base) + a.shape[2:], np.float32)
+            full[:, 1:w + 1] = a
+            wide.append(torch.from_numpy(full).to(device)[:, 1:w + 1])
+        return wide
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _check_splat(args):
+    """B8 on `args` (one launch) bit-exact to zbuffer_splat_plain."""
+    before = tzbuffer.zbuffer_splat.launches
+    gs, hit = tzbuffer.zbuffer_splat(*args)
+    torch.cuda.synchronize()
+    assert tzbuffer.zbuffer_splat.launches == before + 1
+    gs_p, hit_p = tzbuffer.zbuffer_splat_plain(*args)
+    assert torch.equal(hit, hit_p)
+    assert torch.equal(gs.view(torch.int32), gs_p.view(torch.int32))
+    return hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(9, 1), (9, 3), (9, 5), (37, 1921)])
+def test_zbuffer_widths(cuda_device, h, w):
+    """Row widths below one vector of four sources, ragged by 1 and by 3,
+    and a full-HD row plus one."""
+    hit = _check_splat(_splat_args(h, w, w, cuda_device))
+    assert 0 < int(hit.sum()) < h * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(5, 7), (33, 480)])
+def test_zbuffer_unaligned_column_slice(cuda_device, h, w):
+    """Every input a column slice starting 4 bytes into a wider row: no
+    row is 16-byte aligned and rows are not contiguous with each other."""
+    args = _splat_args(h, w, 3, cuda_device, base=5)
+    assert not args[0].is_contiguous() and args[0].data_ptr() % 16 != 0
+    hit = _check_splat(args)
+    assert 0 < int(hit.sum()) < h * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1, 1), (64, 96), (540, 960)])
+def test_zbuffer_all_splats_on_one_target(cuda_device, h, w):
+    """Every source lands on one target, with tied depths: the least depth
+    and, among its sources, the lowest id win."""
+    args = _splat_args(h, w, 5, cuda_device)
+    args[0] = torch.full((h, w), 0.4, device=cuda_device)
+    args[1] = torch.full((h, w), 0.0, device=cuda_device)
+    hit = _check_splat(args)
+    assert int(hit.sum()) == int(hit[0, 0])
+
+
+@pytest.mark.cuda
+def test_zbuffer_equal_depths_and_signed_zeros(cuda_device):
+    """All depths equal, then all of them ±0.0: ties resolve by source id
+    alone, and -0.0 ties with +0.0."""
+    args = _splat_args(48, 64, 6, cuda_device, spread=3.0)
+    args[2] = torch.full((48, 64), 2.5, device=cuda_device)
+    _check_splat(args)
+    rng = np.random.default_rng(6)
+    args[2] = torch.from_numpy(rng.choice(np.float32([-0.0, 0.0]),
+                                          size=(48, 64))).to(cuda_device)
+    _check_splat(args)
+
+
+@pytest.mark.cuda
+def test_zbuffer_non_finite_coordinates(cuda_device):
+    """NaN and ±inf in either coordinate or the depth drop the source;
+    so do targets that round just outside the image (-0.5 rounds to 0,
+    w - 0.5 to w)."""
+    h, w = 31, 45
+    args = _splat_args(h, w, 8, cuda_device)
+    rng = np.random.default_rng(8)
+    for i, bad in ((0, np.nan), (0, np.inf), (0, -np.inf), (1, np.nan),
+                   (1, np.inf), (1, -np.inf), (2, np.inf), (2, -np.inf)):
+        mask = torch.from_numpy(rng.uniform(size=(h, w)) < 0.05).to(
+            cuda_device)
+        args[i] = torch.where(mask, torch.tensor(bad, device=cuda_device),
+                              args[i])
+    args[0][0, :5] = torch.tensor([-0.5, -0.50001, w - 0.5, w - 0.50001, 0.0])
+    args[1][1, :5] = torch.tensor([-0.5, -0.50001, h - 0.5, h - 0.50001, 0.0])
+    hit = _check_splat(args)
+    assert 0 < int(hit.sum()) < h * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_streams", [False, True])
+def test_zbuffer_back_to_back(cuda_device, two_streams):
+    """Calls in a row with no synchronisation between, on different inputs
+    and shapes: a key left behind by one call would show in the next.  The
+    key buffer starts afresh and grows twice (the first call and the
+    last), the last time while the other stream's call may still run."""
+    cases = [_splat_args(h, w, h + w, cuda_device)
+             for h, w in ((120, 200), (120, 200), (37, 61), (120, 200),
+                          (150, 260))]
+    torch.cuda.synchronize()
+    tzbuffer._KEYS.clear()
+    streams = ([torch.cuda.Stream(cuda_device) for _ in range(2)]
+               if two_streams else [torch.cuda.current_stream(cuda_device)])
+    before = tzbuffer.zbuffer_splat.launches
+    outs = []
+    for i, args in enumerate(cases):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            outs.append(tzbuffer.zbuffer_splat(*args))
+    torch.cuda.synchronize()
+    assert tzbuffer.zbuffer_splat.launches == before + len(cases)
+    for (gs, hit), args in zip(outs, cases):
+        gs_p, hit_p = tzbuffer.zbuffer_splat_plain(*args)
+        assert torch.equal(hit, hit_p) and torch.equal(gs, gs_p)
+
+
 # Pyramid shapes of the main path: odd rows and columns, the smallest
 # level (17 x 30), a level of the half-resolution backward pass, and two
 # levels that the SOR kernel cuts into many tiles with ragged edges.
@@ -532,3 +663,21 @@ def test_ransac_takes_draws_on_the_card(cuda_device):
     for got in fits[1:]:
         for a, b in zip(got, fits[0]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_feedback_recovers_corrupted_band_on_the_card(cuda_device):
+    """tests/test_feedback.py's corrupted-band test, at 96x128 on the card
+    with its thresholds (the body is test_torch_gates.py's)."""
+    from test_torch_gates import check_feedback_recovers_band
+
+    check_feedback_recovers_band(cuda_device)
+
+
+@pytest.mark.cuda
+def test_estimate_with_feedback_config_pass_on_the_card(cuda_device):
+    """tests/test_feedback.py's config-pass test ("refine" mode), at
+    96x128 on the card with its thresholds."""
+    from test_torch_gates import check_feedback_config_pass
+
+    check_feedback_config_pass(cuda_device)
