@@ -7,13 +7,16 @@ per-scanline poses -> packed24 rectification -- at full HD (1920x1080) on
 bench.py's input and, held to the renderer's truth, on the castle pair,
 the solver slice (flow field -> RANSAC -> fused
 Schur-LM -> rectification) in both slice configurations, the estimation
-sharded over two ranks, and every rectification engine, through the
+sharded over two ranks, every rectification engine, the STRESS.md protocol
+on its four full-HD scenes and the command-line interface, through the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
 each path against their plain PyTorch versions.
 
     python3 chip_smoke.py          # one CUDA device; a few minutes
     python3 chip_smoke.py --save-b8 PATH   # also saves B8's two inputs,
                                            # for time_b8 of another tree
+    python3 chip_smoke.py --stress-evals 50   # STRESS.md's full protocol
+                                              # in phase 9 (default 8)
 
 Phases, each printing its lines before the next starts (any failure raises
 and the script exits non-zero; nothing is caught and continued):
@@ -51,10 +54,14 @@ and the script exits non-zero; nothing is caught and continued):
               v and w), its true flow and depth; the clean pair through the
               variational preset and the photometric pair (exposure 1.35,
               vignette 0.35, noise 0.005) through the robust preset, each
-              into the production estimation (config.E2E_CONFIG, checked
-              equal to the test's) and the packed24 rectification: flow EPE
-              median, err_v, err3d and depth RMSE beside their gates, stage
-              ms; then the clean pair through E2E_FLOW_PRESET, ungated
+              into the production estimation, both as config.E2E_CONFIG
+              (the kernel engines; checked equal to the test's EST_CFG but
+              for them) and as the test's EST_CFG as written (the "xla"
+              engines: solver/refine.py's LM, B1 for RANSAC), each case
+              launching B1, and the packed24 rectification:
+              flow EPE median, err_v, err3d and depth RMSE beside their
+              gates, stage ms; then the clean pair through E2E_FLOW_PRESET,
+              ungated
   [7 sharded] the estimation at full HD sharded over 2 ranks that share the
               one card over gloo (NCCL refuses two ranks on one device):
               both ranks' scalars bit-identical, and within gates of the
@@ -67,6 +74,24 @@ and the script exits non-zero; nothing is caught and continued):
               scatter_reduce_ "amin" of its packed keys; then the five
               engines, fill_cracks and small_motion_warp at full HD;
               "pallas" equals "scatter"
+  [9 stress]  the STRESS.md protocol (scripts/stress_r5.py): the castle,
+              the photometric castle, the stress scene (movers, a near
+              slab) and the mesh-grade castle rendered at full HD in
+              float64 on the card, each scene's flow preset, then N
+              evaluations (--stress-evals) of fb2_final as written ("xla"
+              engines: B1 and solver/refine.py's LM) and of E2E_CONFIG
+              (B1-B3) on the same draws, each launching B1: err_v mean /
+              median / p90, wrong basins (err_v > 0.2), err_w, err3d, depth
+              RMSE, seconds, beside STRESS.md's TPU rows; gates on the
+              fb2_final medians (the stress scene's: tests/test_fullhd_flow
+              .py's full-HD stress gate); launches of the phase; the LM's
+              ms per iteration, xla against B3 / B2, on the clean flow
+  [10 cli]    cli.main in process at 600x600 on the card (in
+              build/cli_smoke): generate, single-run on the GT flow and
+              with --deep-flow --occlusion-mask --model-feedback,
+              generate-sweep and sweep, test-flow; the files they write,
+              tests/test_harness.py's gates on the GT flow, err_v 0.04 on
+              the dense flow, "OK" for both flows; launches of the phase
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -142,6 +167,48 @@ FULLHD_EST_CFG = dict(ransac_trials=256, ransac_tol=0.02,
                       feedback_passes=2, feedback_mode="refine",
                       feedback_refine_iterations=8)
 ENGINE_FIELDS = {"refine_engine", "ransac_engine", "ransac_chunk"}
+
+# The STRESS.md protocol (phase 9): scripts/stress_r5.py's four scenes at
+# full HD (gamma 0.9, the castle gate's v and w, k 0), each scene's flow
+# preset (scripts/stress_r5.py:112-113) and the fb2_final configuration
+# (scripts/stress_r5.py:80-103), which is FULLHD_EST_CFG.
+STRESS_PRESETS = {"castle_clean": "variational", "castle_photo": "robust",
+                  "stress": "variational", "mesh": "variational"}
+STRESS_EVALS = 8
+STRESS_SEED = 11
+# STRESS.md's fb2_final rows (results/stress_r5.json, 50 evaluations, TPU
+# v5e): err_v mean, median, p90; err_w mean; err3d mean; depth RMSE mean.
+# Accuracy values of the JAX package, printed beside the card's.
+STRESS_TPU_ROWS = {
+    "castle_clean": (0.006150, 0.006147, 0.006167, 0.000739, 0.1287, 0.4652),
+    "castle_photo": (0.07437, 0.07437, 0.07438, 0.005816, 0.4053, 1.1604),
+    "stress": (0.2990, 0.06014, 0.5812, 0.01192, 0.4994, 0.8211),
+    "mesh": (0.01101, 0.01101, 0.01102, 0.001268, 0.1483, 0.4255),
+}
+# Gates on the medians of the fb2_final ("xla") configuration: the castle
+# scenes' are tests/test_fullhd_flow.py's, the mesh (no full-HD gate of
+# its own) takes the clean ones.  The stress scene's is that file's own
+# full-HD stress gate (test_fullhd_stress_movers_and_seed_stability: err_v
+# <= 0.16 a seed, on the exact warp, warp_engine "xla", as B4 is).  Twice
+# STRESS.md's median (0.1203) is printed beside it, not gated: STRESS.md
+# measured through the TPU warp kernel, whose residual displacements beyond
+# warp_radius 24 sample its block window's edge, an approximation of the
+# exact warp (rs_sfm_tpu/ops/pallas/warp.py:15-20) on which this scene's
+# result turns (STRESS.md's warp-radius note: radius 16, 24, 32 give err_v
+# 0.6155, 0.0576, 0.0817).  The stress mean is printed only (STRESS.md: ~3
+# of 50 evaluations in a wrong basin).
+STRESS_GATES = {
+    "castle_clean": {"err_v": 0.04, "err3d": 0.35, "depth_rmse": 0.9},
+    "castle_photo": {"err_v": 0.12, "err3d": 1.0, "depth_rmse": 2.2},
+    "stress": {"err_v": 0.16},
+    "mesh": {"err_v": 0.04, "err3d": 0.35, "depth_rmse": 0.9},
+}
+WRONG_BASIN = 0.2
+# The CLI phase (10): tests/test_harness.py's gates on the GT flow, the
+# clean castle gate's err_v on the dense flow.
+CLI_SIZE = 600
+CLI_GT_GATES = {"err_w": 1e-3, "err_v": 0.02, "reprojection": 0.2}
+CLI_DEEP_ERR_V = 0.04
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -336,8 +403,10 @@ def estimation_launches(cfg):
         single = cfg.refine_iterations + 1
     fb_iters = cfg.feedback_refine_iterations or cfg.refine_iterations
     single += cfg.feedback_passes * (fb_iters + 1)
-    return {"score_hypotheses": int(cfg.ransac_engine == "pallas"),
-            "lm_iter": single, "lm_iter_multi": multi}
+    if cfg.refine_engine != "pallas":
+        multi = single = 0
+    # RANSAC scores on B1 on the card under either engine.
+    return {"score_hypotheses": 1, "lm_iter": single, "lm_iter_multi": multi}
 
 
 def phase_device():
@@ -1396,17 +1465,25 @@ def phase_castle(dev):
           flush=True)
     i2p = apply_photometric(truth.i2, torch.Generator(device=dev).manual_seed(
         1), **PHOTOMETRIC)
-    cases = [(case, get_flow_preset(preset), i2p if case == "photometric"
-              else truth.i2, gates)
-             for case, (preset, gates) in CASTLE_GATES.items()]
-    cases.append(("clean, E2E_FLOW_PRESET (no gate)", E2E_FLOW_PRESET,
-                  truth.i2, None))
-    for case, flow_cfg, i2, gates in cases:
+    # Each gated case through E2E_CONFIG (the kernel engines) and through
+    # the test's EST_CFG as written (the "xla" engines: solver/refine.py's
+    # LM; RANSAC scores on B1 under either engine).
+    cases = [(f"{case}, {name}", get_flow_preset(preset),
+              i2p if case == "photometric" else truth.i2, gates, cfg)
+             for case, (preset, gates) in CASTLE_GATES.items()
+             for name, cfg in (("E2E_CONFIG", E2E_CONFIG),
+                               ("EST_CFG", est))]
+    cases.append(("clean, E2E_FLOW_PRESET, E2E_CONFIG (no gate)",
+                  E2E_FLOW_PRESET, truth.i2, None, E2E_CONFIG))
+    b1 = wrappers()["score_hypotheses"]
+    for case, flow_cfg, i2, gates, est_cfg in cases:
+        launched = b1.launches
         mark, read = stage_marks()
-        got = production_gate(truth, i2, flow_cfg, E2E_CONFIG,
+        got = production_gate(truth, i2, flow_cfg, est_cfg,
                               torch.Generator(device=dev).manual_seed(0),
                               timer=mark)
         stages = read()
+        check(b1.launches > launched, f"castle {case}: B1 launched")
         shown = " ".join(
             f"{k}={v:.4f}" + (f" (gate {gates[k]})" if gates else "")
             for k, v in got.items())
@@ -1739,12 +1816,339 @@ def phase_rectify(dev, e2e, castle, save_b8=None):
     return launches, rec
 
 
+def stress_scene_data(dev, name):
+    """(i1, i2, true depth, poses_r, poses_t, mover share) of one STRESS.md
+    scene: rendered at full HD in float64 on the card, the images and
+    truth cast to float32 (scripts/stress_fullhd.py:60-90,
+    scripts/render_mesh_scene.py); the photometric scene's frame 2 with
+    exposure 1.35, vignette 0.35 and noise 0.005 from a torch generator."""
+    import torch
+
+    from rs_sfm_tpu_torch.data import synthetic as syn
+    from rs_sfm_tpu_torch.data.dataset import true_depth_from_unprojection
+    from rs_sfm_tpu_torch.eval.gate import PHOTOMETRIC, V_TRUE, W_TRUE
+
+    f64 = torch.float64
+    make = {"stress": syn.stress_scene, "mesh": syn.castle_mesh_scene}.get(
+        name, syn.castle_scene)
+    pair = syn.render_pair(make(f64, dev), syn.default_intrinsics(H, W), H, W,
+                           gamma=GAMMA, k=0.0, v=V_TRUE, w=W_TRUE, dtype=f64)
+    f1 = pair.frame1
+    td = true_depth_from_unprojection(f1.rs_unproject, f1.poses_r,
+                                      f1.poses_t)
+    i1 = f1.rs_image.to(torch.float32)
+    i2 = pair.frame2.rs_image.to(torch.float32)
+    if name == "castle_photo":
+        i2 = syn.apply_photometric(
+            i2, torch.Generator(device=dev).manual_seed(1), **PHOTOMETRIC)
+    return (i1, i2, td.to(torch.float32), f1.poses_r.to(torch.float32),
+            f1.poses_t.to(torch.float32),
+            float(f1.mover_mask.float().mean()))
+
+
+def stress_row(errs):
+    """The protocol's numbers of one scene and configuration."""
+    import numpy as np
+
+    ev = errs.error_v_vec
+    return {"err_v_mean": float(np.mean(ev)), "err_v_med": float(np.median(ev)),
+            "err_v_p90": float(np.percentile(ev, 90)),
+            "wrong_basin": int(np.sum(ev > WRONG_BASIN)),
+            "err_w_mean": float(np.mean(errs.error_w_vec)),
+            "err3d_mean": float(np.nanmean(errs.error_reproject_vec)),
+            "err3d_med": float(np.nanmedian(errs.error_reproject_vec)),
+            "depth_rmse_mean": float(np.nanmean(errs.depth_rmse_vec)),
+            "depth_rmse_med": float(np.nanmedian(errs.depth_rmse_vec))}
+
+
+def refine_engine_ms(flow, mask, intr, draws):
+    """ms per LM iteration of the "xla" refinement (solver/refine.py) and
+    of the fused one (B3 at J = 4, B2 at J = 1) on one full-HD flow: the
+    production estimation's RANSAC top-4 starts (E2E_CONFIG's scoring on
+    `draws`), 8 iterations a call, Huber 3 px; CUDA events, median of 5."""
+    from rs_sfm_tpu_torch.config import E2E_CONFIG as cfg
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import _score_hypotheses, ransac
+    from rs_sfm_tpu_torch.solver.refine import refine
+    from rs_sfm_tpu_torch.solver.refine_fused import (refine_pallas,
+                                                      refine_pallas_multi)
+
+    coords, flow_n, alpha, alpha_k, valid = prepare_flow_inputs(
+        flow, intr, GAMMA, cfg)
+    valid = valid & mask.reshape(-1)
+    rr = ransac(coords, flow_n, alpha, alpha_k, valid, use_k=False,
+                trials=cfg.ransac_trials, tolerance=cfg.ransac_tol,
+                sample_indices=draws, engine="pallas",
+                top_j=cfg.refine_starts,
+                top_j_diversity=cfg.refine_start_diversity)
+    _, _, rho, inl = _score_hypotheses(coords, flow_n, alpha, alpha_k, valid,
+                                       rr.top_v, rr.top_w, rr.top_k,
+                                       cfg.ransac_tol)
+    iters = 8
+    kw = dict(optimize_k=False, iterations=iters, rel_tol=0.0,
+              loss_delta=cfg.refine_loss_delta_px / math.sqrt(intr.fx
+                                                              * intr.fy))
+    px = (coords, flow_n, alpha, alpha_k)
+    four = (inl, rr.top_v, rr.top_w, rr.top_k, rho)
+    one = tuple(t[0] for t in four)
+    calls = {"xla J=4": lambda: refine(*px, *four, **kw),
+             "fused B3 J=4": lambda: refine_pallas_multi(*px, *four, **kw),
+             "xla J=1": lambda: refine(*px, *one, **kw),
+             "fused B2 J=1": lambda: refine_pallas(*px, *one, **kw)}
+    return {name: time_ms(fn, runs=5, warmup=1) / iters
+            for name, fn in calls.items()}
+
+
+def phase_stress(dev, n_evals):
+    """The STRESS.md protocol on the card (ROADMAP A2.4): per scene, its
+    flow (flow_forward_backward with its preset on the kernel engines) and
+    n_evals evaluations of fb2_final ("xla" engines as written: B1 and
+    solver/refine.py's LM) and of E2E_CONFIG (B1-B3) on the same draws;
+    gates on the fb2_final medians."""
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, PipelineConfig
+    from rs_sfm_tpu_torch.data.dataset import FrameData, PairData
+    from rs_sfm_tpu_torch.data.synthetic import default_intrinsics
+    from rs_sfm_tpu_torch.eval.gate import V_TRUE, W_TRUE
+    from rs_sfm_tpu_torch.eval.harness import (evaluate_velocities_batched,
+                                               evaluation_generators)
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.models import get_flow_preset
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    fb2 = PipelineConfig(**FULLHD_EST_CFG)
+    configs = {"fb2_final": fb2, "E2E_CONFIG": E2E_CONFIG}
+    intr = default_intrinsics(H, W)
+    wrap = reset_counts()
+    t_phase = time.perf_counter()
+    rows, timing_input = {}, None
+    for label, preset in STRESS_PRESETS.items():
+        t0 = time.perf_counter()
+        i1, i2, td, pr, pt, movers = stress_scene_data(dev, label)
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flow_cfg = get_flow_preset(preset, warp_engine="pallas",
+                                   sor_engine="pallas")
+        fb = flow_forward_backward(i1, i2, flow_cfg)
+        mask = ~fb.occlusion
+        torch.cuda.synchronize()
+        t_flow = time.perf_counter() - t0
+        valid = prepare_flow_inputs(fb.flow, intr, GAMMA, fb2)[4] & \
+            mask.reshape(-1)
+        draws = torch.stack([
+            sample_valid_indices(g, valid, fb2.ransac_trials)
+            for g in evaluation_generators(STRESS_SEED, n_evals, dev)])
+        frame = FrameData(rs_image=i1, gs_image=None, depth_image=None,
+                          poses_r=pr, poses_t=pt, rs_unproject=None,
+                          gs_unproject=None)
+        pair = PairData(frame1=frame, frame2=None, intrinsics=intr,
+                        gamma=GAMMA, k=0.0, v=V_TRUE, w=W_TRUE)
+        print(f"[9 stress] {label}: rendered (float64) in {t_render:.2f} s, "
+              f"movers {movers:.4f} of frame 1; flow ({preset}) "
+              f"{t_flow:.2f} s, occluded "
+              f"{float(fb.occlusion.float().mean()):.4f}", flush=True)
+        for cname, cfg in configs.items():
+            b1 = wrap["score_hypotheses"].launches
+            t0 = time.perf_counter()
+            errs = evaluate_velocities_batched(
+                pair, cfg, gamma=GAMMA, num_evaluations=n_evals,
+                dtype=torch.float32, flow_px=fb.flow, true_depth=td,
+                pixel_mask=mask, sample_indices=draws)
+            seconds = time.perf_counter() - t0
+            check(wrap["score_hypotheses"].launches - b1 >= n_evals,
+                  f"{label} {cname}: B1 scored every evaluation")
+            row = stress_row(errs)
+            rows[(label, cname)] = row
+            print(f"[9 stress] {label} {cname} (N={n_evals}, {seconds:.2f} s"
+                  f", {1e3 * seconds / n_evals:.1f} ms an evaluation): "
+                  + " ".join(f"{k}={v:.4g}" for k, v in row.items()),
+                  flush=True)
+            for key in ("err_v_mean", "err_w_mean", "err3d_mean",
+                        "depth_rmse_mean"):
+                check(math.isfinite(row[key]), f"{label} {cname}: {key}")
+        tpu = dict(zip(("err_v_mean", "err_v_med", "err_v_p90", "err_w_mean",
+                        "err3d_mean", "depth_rmse_mean"),
+                       STRESS_TPU_ROWS[label]))
+        print(f"[9 stress] {label} STRESS.md fb2_final (TPU v5e, 50 "
+              f"evaluations, accuracy only): "
+              + " ".join(f"{k}={v:.4g}" for k, v in tpu.items()), flush=True)
+        if label == "castle_clean":
+            timing_input = (fb.flow, mask, draws[0])
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    print(f"[9 stress] {len(STRESS_PRESETS)} scenes in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {counts}",
+          flush=True)
+    for kname in ("score_hypotheses", "lm_iter", "lm_iter_multi", "warp",
+                  "match_search", "sor_sweeps", "median3_planes"):
+        check(counts[kname] > 0, f"phase 9 launched {kname}")
+    for label, gates in STRESS_GATES.items():
+        row = rows[(label, "fb2_final")]
+        for key, gate in gates.items():
+            got = row[f"{key}_med"]
+            check(got <= gate, f"stress {label}: median {key} {got} <= {gate}")
+    print("[9 stress] gates held on the fb2_final medians: "
+          + "; ".join(f"{label} " + " ".join(
+              f"{k} {rows[(label, 'fb2_final')][k + '_med']:.4g} <= {g}"
+              for k, g in gates.items())
+              for label, gates in STRESS_GATES.items())
+          + f"; stress err_v median beside twice STRESS.md's (TPU warp "
+          f"clamp, printed only): {rows[('stress', 'fb2_final')]['err_v_med']:.4g}"
+          f" vs {2 * STRESS_TPU_ROWS['stress'][1]:.4g}", flush=True)
+    ms = refine_engine_ms(*timing_input[:2], intr, timing_input[2])
+    print("[9 stress] LM ms per iteration on the castle_clean flow "
+          "(E2E_CONFIG's top-4 starts, 8 iterations a call, CUDA events): "
+          + " ".join(f"{k}={v:.3f}" for k, v in ms.items()), flush=True)
+
+
+def phase_cli(dev):
+    """The CLI in process on the card (cli.main) in build/cli_smoke:
+    generate, single-run on the GT flow and on the dense flow with the
+    occlusion mask and the feedback passes, generate-sweep, sweep and
+    test-flow, at 600x600; checks the files they write and the gates."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch import cli
+    from rs_sfm_tpu_torch.data import png
+    from rs_sfm_tpu_torch.eval.metrics import rotation_error, translation_error
+
+    work = ROOT / "build" / "cli_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    wrap = reset_counts()
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main([str(a) for a in argv] + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        tail = " | ".join(text.strip().splitlines()[-3:])
+        print(f"[10 cli] {argv[0]} ({time.perf_counter() - t0:.1f} s): "
+              f"{tail}", flush=True)
+        return text
+
+    def estimate_errors(ds, out, text):
+        est = json.loads((out / "estimate.json").read_text())
+        f64 = dict(dtype=torch.float64)
+        v_true = torch.tensor(np.loadtxt(ds / "v.csv", delimiter=","), **f64)
+        w_true = torch.tensor(np.loadtxt(ds / "w.csv", delimiter=","), **f64)
+        return {"err_w": float(rotation_error(torch.tensor(est["w"], **f64),
+                                              w_true)),
+                "err_v": float(translation_error(
+                    torch.tensor(est["v"], **f64), v_true)),
+                "reprojection": float(text.split(
+                    "mean reprojection error:")[1].split()[0])}
+
+    def check_single_run(out):
+        for name in ("optical_flow.png", "optical_flow_arrow.png",
+                     "MinimalDepth.png", "backprojection.png",
+                     "error_image.png", "gs_image.png", "difference.png",
+                     "remainder.png", "overlay_gs_rs.png",
+                     "overlay_gs_bp.png"):
+            img = png.read(str(out / name))
+            check(img.shape[:2] == (CLI_SIZE, CLI_SIZE), f"cli {out.name}: "
+                  f"{name} {img.shape}")
+        depth = png.read(str(out / "MinimalDepth.png"))
+        check(float((depth > 0).mean()) > 0.2,
+              f"cli {out.name}: depth PNG covers > 0.2 of the pixels")
+        ply = (out / "point_cloud.ply").read_text().splitlines()
+        check(ply[0] == "ply" and int(ply[2].split()[-1]) == len(ply) - 10
+              > 0.2 * CLI_SIZE ** 2, f"cli {out.name}: point_cloud.ply")
+
+    ds = work / "ds"
+    run("generate", "--out", ds, "--size", CLI_SIZE)
+    check((ds / "images" / "1_rs.png").exists()
+          and (ds / "images" / "2_rs_unproject_z.csv").exists()
+          and (ds / "v.csv").exists(), "cli generate: the dataset layout")
+    gt = work / "gt"
+    text = run("single-run", "--data", ds, "--out", gt)
+    check_single_run(gt)
+    errs = estimate_errors(ds, gt, text)
+    for key, gate in CLI_GT_GATES.items():
+        check(errs[key] < gate, f"cli single-run (GT flow): {key} "
+              f"{errs[key]} < {gate}")
+    deep = work / "deep"
+    text = run("single-run", "--data", ds, "--out", deep, "--deep-flow",
+               "--occlusion-mask", "--model-feedback")
+    check_single_run(deep)
+    deep_errs = estimate_errors(ds, deep, text)
+    check(deep_errs["err_v"] < CLI_DEEP_ERR_V, f"cli single-run --deep-flow:"
+          f" err_v {deep_errs['err_v']} < {CLI_DEEP_ERR_V}")
+    sw = work / "sweep"
+    run("generate-sweep", "--out", sw, "--size", CLI_SIZE, "--gammas",
+        "0.5,0.9")
+    tasks = (sw / "tasks.txt").read_text().split()
+    run("sweep", "--path", sw, "--num-evaluations", 2)
+    (res,) = (sw / "results").iterdir()
+    lines = (res / "errors.csv").read_text().splitlines()
+    check(lines[0] == "task,error_w,error_v,reproject_error"
+          and [r.split(",")[0] for r in lines[1:]] == tasks,
+          f"cli sweep: errors.csv rows {lines}")
+    sweep_errs = [dict(zip(("err_w", "err_v", "reprojection"),
+                           map(float, r.split(",")[1:]))) for r in lines[1:]]
+    for row in sweep_errs:
+        for key, gate in CLI_GT_GATES.items():
+            check(row[key] < gate, f"cli sweep: {key} {row[key]} < {gate}")
+    check(json.loads((res / "progress.json").read_text())["done"]
+          == sorted(tasks), "cli sweep: progress.json lists every task")
+    for i in range(len(tasks)):
+        for run_i in range(2):
+            check((res / "depthMaps" / str(i) / f"depth_{run_i}.png").exists()
+                  and (res / "depthMaps" / str(i)
+                       / f"point_cloud_{run_i}.ply").exists(),
+                  f"cli sweep: task {i} run {run_i} depth PNG and PLY")
+    text = run("test-flow", "--data", ds)
+    verdicts = [line.split()[0] + " " + line.split()[-1]
+                for line in text.splitlines()]
+    check(verdicts == ["true OK", "dense OK"], f"cli test-flow: {verdicts}")
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    for kname in ("score_hypotheses", "warp", "match_search", "sor_sweeps",
+                  "median3_planes"):
+        check(counts[kname] > 0, f"phase 10 launched {kname}")
+    # data/png.py's reader on a full-HD RGB frame, every row with one filter
+    # (photo writers mostly pick Paeth): host seconds, median of 3.
+    frame = np.random.default_rng(0).integers(0, 256, (H, W, 3), np.uint8)
+    read_s = {}
+    for name, row_filter in (("up", 2), ("average", 3), ("paeth", 4)):
+        blob = png.encode(frame, row_filter=row_filter)
+        check(np.array_equal(png.decode(blob), frame), f"png {name} round trip")
+        read_s[name] = wall_ms(lambda: png.decode(blob), runs=3,
+                               warmup=0) / 1e3
+    print(f"[10 cli] {CLI_SIZE}x{CLI_SIZE}: GT flow "
+          + " ".join(f"{k}={v:.4g}" for k, v in errs.items())
+          + f" (gates {CLI_GT_GATES}); dense flow "
+          + " ".join(f"{k}={v:.4g}" for k, v in deep_errs.items())
+          + f" (err_v gate {CLI_DEEP_ERR_V}); sweep "
+          + "; ".join(" ".join(f"{k}={v:.4g}" for k, v in r.items())
+                      for r in sweep_errs)
+          + f"; test-flow {verdicts}; launches {counts}; png.read of a "
+          f"{W}x{H} RGB frame (host s): "
+          + " ".join(f"{k}={v:.3f}" for k, v in read_s.items()), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
-    save_b8 = None
-    if sys.argv[1:2] == ["--save-b8"] and len(sys.argv) == 3:
-        save_b8 = sys.argv[2]
-    elif len(sys.argv) > 1:
-        raise SystemExit("usage: chip_smoke.py [--save-b8 PATH]")
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--save-b8", default=None, metavar="PATH",
+                    help="also save B8's two inputs, for time_b8")
+    ap.add_argument("--stress-evals", type=int, default=STRESS_EVALS,
+                    metavar="N", help="evaluations a scene and configuration "
+                    f"in phase 9 (default {STRESS_EVALS}; 50 is STRESS.md's "
+                    "protocol)")
+    args = ap.parse_args()
+    save_b8 = args.save_b8
     if not (ROOT / "rs_sfm_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: rs_sfm_tpu_torch/ not found beside this "
                          "script; run it from a checkout of the repository")
@@ -1765,6 +2169,8 @@ def main():
     rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e,
                                                               castle, save_b8)
     launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
+    phase_stress(dev, args.stress_evals)
+    phase_cli(dev)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 

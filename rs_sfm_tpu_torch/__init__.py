@@ -34,4 +34,4 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["config", "geom", "solver", "ops", "rectify", "data", "flow",
-           "models"]
+           "models", "eval", "parallel", "cli"]

@@ -1,6 +1,7 @@
 """Inputs: the solver slice's synthetic flow (`make_flow`), the synthetic
-rolling-shutter renderer (`synthetic`) and the ground-truth depth
-(`dataset`)."""
+rolling-shutter renderer (`synthetic`), the reference's dataset layout and
+ground-truth depth (`dataset`, with the PNG codec `png`), the PLY writer
+(`ply`) and the named-camera registry (`intrinsics`)."""
 
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Procedural synthetic rolling-shutter renderer (port of
-rs_sfm_tpu/data/synthetic.py: the castle scene, the ray-cast render of a
-two-frame RS pair with its ground truth, and the photometric nuisances'
-exposure, tone-curve, vignette and noise options).
+rs_sfm_tpu/data/synthetic.py: the castle, mesh-grade castle and stress
+scenes, the ray-cast render of a two-frame RS pair with its ground truth,
+and the photometric nuisances' exposure, tone-curve, vignette and noise
+options).
 
 The scene is a set of textured rectangles with closed-form ray
 intersection, so every pixel of every scanline renders under its own pose
@@ -101,10 +102,122 @@ def castle_scene(dtype=torch.float32, device=None) -> Scene:
     """Default scene: a castle-like arrangement of facades, ground and
     tower (synthetic.py:85).  World frame = frame-1 scanline-0 camera frame
     (x right, y down, z forward); mean depth about 6."""
-    cols = [as_device_tensor(np.array([r[i] for r in _CASTLE]), device, dtype)
-            for i in range(4)]
+    return _scene(_CASTLE, dtype, device)
+
+
+def _scene(rects, dtype, device, velocity=None) -> Scene:
+    """A Scene from (origin, edge1, edge2, colour) rows of numbers."""
+    cols = [as_device_tensor(np.array([r[i] for r in rects], np.float64),
+                             device, dtype) for i in range(4)]
+    vel = (None if velocity is None
+           else as_device_tensor(np.array(velocity, np.float64),
+                                 cols[0].device, dtype))
     return Scene(origins=cols[0], edge1=cols[1], edge2=cols[2],
-                 base_color=cols[3])
+                 base_color=cols[3], velocity=vel)
+
+
+def castle_mesh_scene(dtype=torch.float32, device=None, *,
+                      seed: int = 0) -> Scene:
+    """Mesh-grade castle (synthetic.py:139): ~120 faces with real depth
+    discontinuities, the same geometry and colours as the JAX scene for a
+    given seed (its rubble boxes come from numpy's default_rng(seed)).
+
+    A keep and two towers of boxes with crenellated parapets (sliver
+    occluders), a staircase, thin flag poles with flags, an overhanging
+    balcony and scattered rubble boxes, over the ground and back wall.
+    """
+    rng = np.random.default_rng(seed)
+    rects = []
+
+    def rect(p0, e1, e2, color):
+        rects.append((p0, e1, e2, color))
+
+    def box_front_top(x0, y_top, z0, wx, hy, dz, color):
+        """Front, top and left faces of an axis-aligned box (y down)."""
+        rect([x0, y_top, z0], [wx, 0.0, 0.0], [0.0, hy, 0.0], color)
+        rect([x0, y_top, z0], [wx, 0.0, 0.0], [0.0, 0.0, dz], color)
+        rect([x0, y_top, z0], [0.0, 0.0, dz], [0.0, hy, 0.0], color)
+
+    # Ground + back wall (the stage).
+    rect([-8.0, 2.0, 0.5], [16.0, 0.0, 0.0], [0.0, 0.0, 14.0],
+         [0.45, 0.40, 0.30])
+    rect([-8.0, -5.0, 11.5], [16.0, 0.0, 0.0], [0.0, 7.0, 0.0],
+         [0.50, 0.47, 0.44])
+    # Central keep (front at z = 7) with a crenellated parapet.
+    rect([-2.0, -2.6, 7.0], [4.0, 0.0, 0.0], [0.0, 4.6, 0.0],
+         [0.58, 0.52, 0.42])
+    rect([-2.0, -2.6, 7.0], [4.0, 0.0, 0.0], [0.0, 0.0, 1.6],
+         [0.52, 0.47, 0.38])
+    for i in range(7):
+        box_front_top(-2.0 + 0.1 + i * 0.56, -3.05, 6.95, 0.28, 0.45, 0.35,
+                      [0.56, 0.50, 0.40])
+    # Balcony overhang on the keep (underside + front lip).
+    rect([-1.2, -1.1, 6.45], [2.4, 0.0, 0.0], [0.0, 0.0, 0.55],
+         [0.48, 0.42, 0.34])
+    rect([-1.2, -1.1, 6.45], [2.4, 0.0, 0.0], [0.0, 0.35, 0.0],
+         [0.50, 0.44, 0.36])
+    # Two towers with parapets.
+    for tx, tz, tw in ((-4.6, 5.6, 1.5), (3.1, 6.2, 1.4)):
+        rect([tx, -3.4, tz], [tw, 0.0, 0.0], [0.0, 5.4, 0.0],
+             [0.60, 0.46, 0.36])
+        rect([tx, -3.4, tz], [tw, 0.0, 0.0], [0.0, 0.0, 1.2],
+             [0.55, 0.42, 0.33])
+        rect([tx + tw, -3.4, tz], [0.0, 0.0, 1.2], [0.0, 5.4, 0.0],
+             [0.57, 0.44, 0.34])
+        for i in range(4):
+            box_front_top(tx + 0.05 + i * (tw - 0.3) / 3.0, -3.82, tz - 0.05,
+                          0.22, 0.42, 0.3, [0.58, 0.44, 0.35])
+    # Staircase up to the keep (8 steps: tread, riser).
+    for i in range(8):
+        sx, sw = 0.1, 1.3
+        z = 5.8 - i * 0.28
+        y = 2.0 - (i + 1) * 0.22
+        rect([sx, y, z], [sw, 0.0, 0.0], [0.0, 0.0, 0.28],
+             [0.47, 0.43, 0.36])
+        rect([sx, y, z], [sw, 0.0, 0.0], [0.0, 0.22, 0.0],
+             [0.44, 0.40, 0.34])
+    # Flag poles (slivers) with flags on the keep and the towers.
+    for px, pz in ((-0.1, 6.9), (-4.2, 5.55), (3.6, 6.15)):
+        rect([px, -4.9, pz], [0.05, 0.0, 0.0], [0.0, 1.6, 0.0],
+             [0.30, 0.28, 0.26])
+        rect([px + 0.05, -4.85, pz], [0.45, 0.0, 0.0], [0.0, 0.3, 0.0],
+             [0.70, 0.25, 0.20])
+    # Rubble boxes on the ground (random sizes and depths).
+    for _ in range(12):
+        bx = rng.uniform(-5.5, 5.5)
+        bz = rng.uniform(2.2, 9.5)
+        bw = rng.uniform(0.25, 0.8)
+        bh = rng.uniform(0.2, 0.6)
+        bd = rng.uniform(0.25, 0.7)
+        shade = rng.uniform(0.35, 0.65)
+        box_front_top(bx, 2.0 - bh, bz, bw, bh, bd,
+                      [shade, shade * 0.95, shade * 0.85])
+    return _scene(rects, dtype, device)
+
+
+def stress_scene(dtype=torch.float32, device=None, *, mover_speed=0.8,
+                 foreground=True) -> Scene:
+    """The castle plus rigidity breakers (synthetic.py:467): a near
+    foreground slab (depth ~1.8) and two independently moving cards (world
+    velocity `mover_speed` units per frame interval: one lateral, one
+    diagonal towards the camera).  Pixels on movers are flagged in
+    SyntheticFrame.mover_mask."""
+    extra = [
+        # foreground slab, bottom-left quadrant, very close
+        ([-1.6, 0.45, 1.8], [0.9, 0.0, 0.0], [0.0, 0.75, 0.0],
+         [0.85, 0.55, 0.35], [0.0, 0.0, 0.0]),
+        # lateral mover: small card sweeping left to right mid-frame
+        ([-0.55, -0.35, 3.0], [0.5, 0.0, 0.0], [0.0, 0.5, 0.0],
+         [0.25, 0.75, 0.9], [mover_speed, 0.0, 0.0]),
+        # diagonal mover: drifting down-right and toward the camera
+        ([0.35, -1.05, 4.2], [0.65, 0.0, 0.0], [0.0, 0.65, 0.0],
+         [0.9, 0.35, 0.4], [-0.5 * mover_speed, 0.35 * mover_speed,
+                            -0.4 * mover_speed]),
+    ]
+    if not foreground:
+        extra = extra[1:]
+    velocity = [[0.0] * 3] * len(_CASTLE) + [e[4] for e in extra]
+    return _scene(_CASTLE + [e[:4] for e in extra], dtype, device, velocity)
 
 
 def _hash_noise(u, v, seed):

@@ -1,2 +1,3 @@
 """Dense optical flow (pyramidal variational, with the forward-backward
-occlusion test) and the model-feedback pass."""
+occlusion test), the model-feedback pass, the flow self-check and the flow
+visualization."""

@@ -20,6 +20,17 @@ class Intrinsics:
     cx: float
     cy: float
 
+    @classmethod
+    def from_matrix(cls, k) -> "Intrinsics":
+        """From a 3x3 K matrix (any nested sequence or array)."""
+        return cls(fx=float(k[0][0]), fy=float(k[1][1]), cx=float(k[0][2]),
+                   cy=float(k[1][2]))
+
+    def matrix(self):
+        """The 3x3 K matrix as nested lists of floats."""
+        return [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                [0.0, 0.0, 1.0]]
+
 
 def true_div(x, value: float):
     """x / value in IEEE division on every device.  On CUDA, PyTorch divides

@@ -1,1 +1,2 @@
-"""Minimal solver, RANSAC, fused LM refinement and the estimation pipeline."""
+"""Minimal solver, RANSAC, the two LM refinement engines (fused kernels,
+plain tensors) and the estimation pipeline."""

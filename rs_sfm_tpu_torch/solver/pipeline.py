@@ -1,22 +1,26 @@
 """End-to-end motion/depth estimation from a dense flow field (port of
 rs_sfm_tpu/solver/pipeline.py).
 
-flatten → normalize → α/α̃ → RANSAC → fused Schur-LM refinement (one start,
-or J diversity starts winnowed to one) → sign flip → depth export
+flatten → normalize → α/α̃ → RANSAC → Schur-LM refinement (one start, or J
+diversity starts winnowed to one) → sign flip → depth export
 (src/main.cc:398-509), and `estimate_with_feedback`, the production entry
 point that adds the model-feedback passes (flow/feedback.py) with
-warm-started refinement.  Every tensor stays on the flow field's device; on
-the card the scoring and LM iterations run the hand-written kernels.
+warm-started refinement.  Every tensor stays on the flow field's device.
+The refinement engine is cfg.refine_engine's: "pallas" is the fused LM
+(solver/refine_fused: the hand-written kernels on the card), "xla" the
+plain-tensor LM in the flow's dtype (solver/refine).  RANSAC scores its
+hypotheses with the kernel on the card under either cfg.ransac_engine;
+on CPU tensors "xla" is the plain scoring in the flow's dtype.
 
 Under scanline-block sharding (`group`, parallel/api.py::estimate_sharded)
 each rank runs this function on its block of rows: RANSAC shares its
 sample pool and votes, the refinement all-reduces its sums, and the
 re-votes, inlier counts and sign flip sum over the group, so every scalar
 output is the same on all ranks and the per-pixel outputs are the rank's
-rows.
+rows.  The sharded form runs the fused engine only.
 
 Not ported yet: the acceleration model and its k-scan, the second winnow
-stage, the two-stage prescore, the XLA-style refinement engine, and of the
+stage, the two-stage prescore, the sharded "xla" refinement, and of the
 feedback options the basin re-vote, the decimated inpainting and the
 "full" re-estimation mode.
 """
@@ -36,6 +40,7 @@ from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
 from rs_sfm_tpu_torch.solver.ransac import (RansacResult, _score_hypotheses,
                                             ransac)
+from rs_sfm_tpu_torch.solver.refine import refine as refine_xla
 from rs_sfm_tpu_torch.solver.refine_fused import (
     refine_pallas, refine_pallas_multi, refine_pallas_multi_sharded)
 
@@ -98,9 +103,6 @@ def _check_supported(cfg: PipelineConfig) -> None:
         raise NotImplementedError("the RANSAC prescore is not ported yet")
     if cfg.refine_winnow2_iters:
         raise NotImplementedError("the second winnow stage is not ported")
-    if cfg.use_refinement and cfg.refine_engine != "pallas":
-        raise NotImplementedError(
-            "only the fused refinement (refine_engine='pallas') is ported")
     if cfg.feedback_passes > 0:
         if cfg.feedback_revote:
             raise NotImplementedError("the feedback basin re-vote is not "
@@ -146,6 +148,11 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         events; nothing is synchronized here).
     """
     _check_supported(cfg)
+    xla = cfg.refine_engine != "pallas"
+    if group is not None and cfg.use_refinement and xla:
+        raise NotImplementedError(
+            "the sharded refinement runs the fused engine only "
+            "(refine_engine='pallas'); the sharded 'xla' one is ROADMAP A8")
     mark = timer if timer is not None else (lambda _name: None)
     h, w_cols = flow_px.shape[:2]
     use_k = False
@@ -193,6 +200,9 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         """J-start refinement: the sharded LM under `group`."""
         kwargs = dict(optimize_k=use_k, iterations=iters,
                       rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
+        if xla:
+            return refine_xla(coords, flow_n, alpha, alpha_k, masks, vs, ws,
+                              ks, rhos, **kwargs)
         if group is not None:
             return refine_pallas_multi_sharded(
                 coords, flow_n, alpha, alpha_k, masks, vs, ws, ks, rhos,
@@ -248,12 +258,11 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
             ref = ref._replace(v=ref.v[0], w=ref.w[0], k=ref.k[0],
                                cost=ref.cost[0])
         else:
-            ref = refine_pallas(coords, flow_n, alpha, alpha_k,
-                                rr.inlier_mask, rr.v, rr.w, rr.k,
-                                rr.inv_depth, optimize_k=use_k,
-                                iterations=cfg.refine_iterations,
-                                rel_tol=cfg.refine_rel_tol,
-                                loss_delta=loss_delta)
+            single = refine_xla if xla else refine_pallas
+            ref = single(coords, flow_n, alpha, alpha_k, rr.inlier_mask,
+                         rr.v, rr.w, rr.k, rr.inv_depth, optimize_k=use_k,
+                         iterations=cfg.refine_iterations,
+                         rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
         v, w, k = ref.v, ref.w, ref.k
         refine_cost = ref.cost
         cand_v = cand_w = no_cands

@@ -156,8 +156,11 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
       generator: torch.Generator on the pixels' device for the sampling;
         ignored when `sample_indices` ((trials, 9) indices, e.g. the JAX
         package's draws) is given.
-      chunk: hypotheses per pass of the "xla" engine.
-      engine: "pallas" = the scoring kernel; "xla" = plain tensor ops.
+      chunk: hypotheses per pass of the "xla" engine on CPU tensors.
+      engine: "pallas" = the scoring kernel; "xla" = plain tensor ops in
+        the pixels' dtype on CPU tensors, and the scoring kernel on CUDA
+        tensors (its inlier counts are the plain version's, its error sums
+        float32, as the "pallas" engine's are on either device).
       top_j, top_j_diversity: multi-start outputs (RansacResult.top_*).
       group: process group when the pixels are this rank's scanline block
         of a sharded image (None = the whole image).  The draws then index
@@ -196,21 +199,21 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
     ak9 = pak[idx].to(CORE_DTYPE)
     w_all, v_all, k_all = calculate_velocities(q, u, a9, ak9, False)
 
-    if engine == "pallas":
+    if engine not in ("pallas", "xla"):
+        raise ValueError(f"unknown RANSAC engine {engine!r}")
+    if engine == "pallas" or coords.is_cuda:
         px = pack_pixels(coords, flow, alpha, alpha_k, valid_mask)
         hy = pack_hyps(v_all, w_all, k_all)
         nums_f, ierrs = score_hypotheses(px, hy, float(tolerance))
         nums = nums_f.to(torch.int32)
         ierrs = ierrs.to(coords.dtype)
-    elif engine == "xla":
+    else:
         parts = [_score_hypotheses(coords, flow, alpha, alpha_k, valid_mask,
                                    v_all[c:c + chunk], w_all[c:c + chunk],
                                    k_all[c:c + chunk], tolerance)[:2]
                  for c in range(0, trials, chunk)]
         nums = torch.cat([p[0] for p in parts])
         ierrs = torch.cat([p[1] for p in parts])
-    else:
-        raise ValueError(f"unknown RANSAC engine {engine!r}")
     n_total = n
     if group is not None:
         # ONE all-reduce of the stacked (T, 2) vote table; counts travel as

@@ -20,8 +20,6 @@ Float32 only.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from rs_sfm_tpu_torch.ops.kernels.refine_kernels import (S_ACCEPT, S_COST,
@@ -32,21 +30,11 @@ from rs_sfm_tpu_torch.ops.kernels.refine_kernels import (S_ACCEPT, S_COST,
                                                          lm_iter_multi,
                                                          lm_sums_multi)
 from rs_sfm_tpu_torch.parallel.distributed import psum
+from rs_sfm_tpu_torch.solver.refine import RefineResult
 
 
 # LM damping of the first solve (the JAX functions' default).
 INIT_LAMBDA = 1e-6
-
-
-class RefineResult(NamedTuple):
-    """rs_sfm_tpu/solver/refine.py:40."""
-
-    v: torch.Tensor          # (3,) or (J, 3)
-    w: torch.Tensor
-    k: torch.Tensor
-    inv_depth: torch.Tensor  # (N,) or (J, N) refined ρ
-    cost: torch.Tensor       # final masked (robust) cost
-    initial_cost: torch.Tensor
 
 
 def initial_state(v0, w0, k0, *, optimize_k: bool, init_lambda: float,

@@ -681,3 +681,187 @@ def test_estimate_with_feedback_config_pass_on_the_card(cuda_device):
     from test_torch_gates import check_feedback_config_pass
 
     check_feedback_config_pass(cuda_device)
+
+
+@pytest.mark.cuda
+def test_ransac_xla_engine_scores_on_the_kernel(cuda_device):
+    """engine="xla" on CUDA tensors scores with B1: one launch, and the
+    same result as engine="pallas" from the same draws."""
+    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG as cfg
+    from rs_sfm_tpu_torch.geom.camera import Intrinsics
+    from rs_sfm_tpu_torch.solver import pipeline, ransac
+
+
+    h, w, f = 48, 64, 60.0
+    intr = Intrinsics(fx=f, fy=f, cx=w / 2.0, cy=h / 2.0)
+    rng = np.random.default_rng(4)
+    flow = torch.from_numpy((np.float32([0.8, -0.4]) + rng.normal(
+        scale=0.05, size=(h, w, 2))).astype(np.float32)).to(cuda_device)
+    px = pipeline.prepare_flow_inputs(flow, intr, 0.9, cfg)
+    draws = ransac.sample_valid_indices(
+        torch.Generator(device=cuda_device).manual_seed(3), px[4],
+        cfg.ransac_trials)
+    got = {}
+    for engine in ("xla", "pallas"):
+        before = tscore.score_hypotheses.launches
+        got[engine] = ransac.ransac(*px, use_k=False,
+                                    trials=cfg.ransac_trials,
+                                    tolerance=cfg.ransac_tol,
+                                    sample_indices=draws, engine=engine,
+                                    top_j=4)
+        assert tscore.score_hypotheses.launches == before + 1
+    for a, b in zip(got["xla"], got["pallas"]):
+        assert torch.equal(a, b)
+
+
+def _refine_problem(n=4096, seed=0):
+    """RS flow of n points (float64) with noise and outliers, a perturbed
+    start: solver/refine.py's input."""
+    rng = np.random.default_rng(seed)
+    px = rng.uniform(0, 599, size=(n, 2))
+    coords = torch.from_numpy((px - 300.0) / 500.0)
+    v = torch.tensor([0.02, -0.01, 0.015], dtype=torch.float64)
+    w = torch.tensor([0.004, -0.002, 0.008], dtype=torch.float64)
+    rho = torch.from_numpy(1.0 / rng.uniform(3.0, 9.0, size=n))
+    dy = torch.from_numpy(rng.normal(scale=2.0, size=n))
+    alpha = get_alpha(dy, 600, 0.9)
+    alpha_k = get_alpha_k(torch.from_numpy(px[:, 1]), dy, 600, 0.9)
+    flow = predict_flow(coords, rho, v, w, 0.0, alpha, alpha_k)
+    flow = flow + torch.from_numpy(rng.normal(scale=2e-4, size=(n, 2)))
+    flow[:64] += torch.tensor([3e-3, -2e-3], dtype=torch.float64)
+    mask = torch.from_numpy(rng.uniform(size=(4, n)) > 0.1)
+    scale = torch.from_numpy(rng.uniform(0.8, 1.25, size=(4, 1)))
+    return ([coords, flow, alpha, alpha_k],
+            [mask, v * scale, w / scale, torch.zeros(4, dtype=torch.float64),
+             rho[None] * scale])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_refine_xla_on_the_card_matches_cpu(cuda_device, dtype):
+    """solver/refine.py (refine_engine="xla"), 4 starts batched, Huber:
+    the card against the CPU from the same inputs.  float64 within 1e-9
+    (v, w and the cost; the summation order of the Gram products alone
+    differs); float32 within the pipeline's float32 gates (v as a
+    direction 2e-4, w 1e-5, cost 1e-3 relative)."""
+    from rs_sfm_tpu_torch.solver.refine import refine
+
+    shared, starts = _refine_problem()
+    kw = dict(optimize_k=False, iterations=20, rel_tol=0.0, loss_delta=1e-3)
+    cast = lambda ts, dev: [t.to(dev, dtype) if t.is_floating_point()  # noqa
+                            else t.to(dev) for t in ts]
+    cpu = refine(*cast(shared, "cpu"), *cast(starts, "cpu"), **kw)
+    card = refine(*cast(shared, cuda_device), *cast(starts, cuda_device),
+                  **kw)
+    assert card.v.is_cuda and card.v.dtype == dtype
+    v_tol, w_tol, c_tol = ((1e-9, 1e-9, 1e-9) if dtype == torch.float64
+                           else (2e-4, 1e-5, 1e-3))
+    unit = lambda v: v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)  # noqa
+    torch.testing.assert_close(unit(card.v.cpu()), unit(cpu.v), rtol=0,
+                               atol=v_tol)
+    torch.testing.assert_close(card.w.cpu(), cpu.w, rtol=0, atol=w_tol)
+    torch.testing.assert_close(card.cost.cpu(), cpu.cost, rtol=c_tol, atol=0)
+    assert bool((card.cost < card.initial_cost).all())
+
+
+def _castle_pair_data(size):
+    from rs_sfm_tpu_torch.data import synthetic as syn
+    from rs_sfm_tpu_torch.data.dataset import FrameData, PairData
+
+    intr = syn.default_intrinsics(size, size)
+    p = syn.render_pair(syn.castle_scene(torch.float32, "cpu"), intr, size,
+                        size, gamma=0.9, k=0.0, v=(0.12, -0.05, 0.08),
+                        w=(0.003, -0.002, 0.004))
+
+    def frame(fr):
+        return FrameData(rs_image=fr.rs_image.numpy(),
+                         gs_image=fr.gs_image.numpy(), depth_image=None,
+                         poses_r=fr.poses_r.numpy(),
+                         poses_t=fr.poses_t.numpy(),
+                         rs_unproject=fr.rs_unproject.numpy(),
+                         gs_unproject=fr.gs_unproject.numpy())
+
+    return PairData(frame(p.frame1), frame(p.frame2), intr, gamma=0.9, k=0.0,
+                    v=p.v.numpy(), w=p.w.numpy())
+
+
+@pytest.mark.cuda
+def test_harness_on_the_card_matches_cpu(cuda_device):
+    """evaluate_velocities_batched at 64x64, 2 evaluations of the default
+    ("xla") configuration, the same draws on both devices (RANSAC scores
+    on B1 on the card, so the CPU side scores with its plain version, the
+    "pallas" engine): v as a direction within 2e-4, w within 1e-5, err3d
+    within 1e-3 relative, inlier counts within 0.1 % of the pixels;
+    tests/test_harness.py's gates on the card."""
+    import dataclasses
+
+    from rs_sfm_tpu_torch.config import PipelineConfig
+    from rs_sfm_tpu_torch.eval import harness
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    pair = _castle_pair_data(64)
+    cfg = PipelineConfig(ransac_trials=32, ransac_tol=0.01,
+                         refine_iterations=20)
+    flow = harness.compute_flow(pair, device="cpu")
+    valid = prepare_flow_inputs(flow, pair.intrinsics, 0.9, cfg)[4]
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.stack([sample_valid_indices(gen, valid, cfg.ransac_trials)
+                       for _ in range(2)])
+    cpu_cfg = dataclasses.replace(cfg, ransac_engine="pallas")
+    got = {dev: harness.evaluate_velocities_batched(
+        pair, c, num_evaluations=2, sample_indices=idx, device=dev)
+        for dev, c in (("cpu", cpu_cfg), (cuda_device, cfg))}
+    cpu, card = got["cpu"], got[cuda_device]
+    unit = lambda v: v / np.linalg.norm(v, axis=0, keepdims=True)  # noqa
+    np.testing.assert_allclose(unit(card.v), unit(cpu.v), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(card.w, cpu.w, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card.error_reproject_vec,
+                               cpu.error_reproject_vec, rtol=1e-3)
+    assert np.abs(card.num_inliers - cpu.num_inliers).max() <= 1e-3 * 64 * 64
+    assert card.error_w < 1e-3 and card.error_v < 0.02
+    assert card.error_reproject < 0.2
+
+
+@pytest.mark.cuda
+def test_png_round_trip_of_a_card_image(cuda_device, tmp_path):
+    """A frame rendered on the card, written by data/png.py and read back:
+    the same pixels as the render's uint8 copy."""
+    from rs_sfm_tpu_torch.data import png, synthetic as syn
+    from rs_sfm_tpu_torch.data.dataset import to_uint8
+
+    p = syn.render_pair(syn.castle_scene(torch.float32, cuda_device),
+                        syn.default_intrinsics(40, 56), 40, 56, gamma=0.9,
+                        k=0.0, v=(0.12, -0.05, 0.08),
+                        w=(0.003, -0.002, 0.004))
+    assert p.frame1.rs_image.is_cuda
+    img = to_uint8(p.frame1.rs_image)
+    png.write(str(tmp_path / "f.png"), img)
+    back = png.read(str(tmp_path / "f.png"))
+    np.testing.assert_array_equal(back, img)
+    np.testing.assert_array_equal(
+        back, np.clip(np.round(p.frame1.rs_image.cpu().numpy() * 255.0), 0,
+                      255).astype(np.uint8))
+
+
+@pytest.mark.cuda
+def test_cli_single_run_on_the_card(cuda_device, tmp_path, capsys):
+    """`generate --size 64` and `single-run` (the default configuration on
+    the GT flow) with --device cuda, held to tests/test_harness.py's
+    gates."""
+    import json
+
+    from rs_sfm_tpu_torch import cli
+
+    ds, out = tmp_path / "ds", tmp_path / "res"
+    cli.main(["generate", "--out", str(ds), "--size", "64"])
+    cli.main(["single-run", "--data", str(ds), "--out", str(out),
+              "--ransac-trials", "32", "--ransac-tol", "0.01"])
+    est = json.loads((out / "estimate.json").read_text())
+    v, v_true = np.array(est["v"]), np.array([0.12, -0.05, 0.08])
+    cos = abs(v @ v_true) / np.linalg.norm(v) / np.linalg.norm(v_true)
+    assert np.arccos(min(cos, 1.0)) < 0.02
+    assert np.abs(np.array(est["w"]) - [0.003, -0.002, 0.004]).max() < 1e-3
+    text = capsys.readouterr().out
+    assert float(text.split("mean reprojection error:")[1].split()[0]) < 0.2
+    assert (out / "point_cloud.ply").exists()

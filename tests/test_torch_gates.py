@@ -9,8 +9,8 @@ tests/test_feedback.py's corrupted-band tests at 96x128.
     median 0.1057 px, err_v 0.02569 rad, err3d 0.2688, depth RMSE 0.6863)
     with the full-HD gate's ~50 % margin.
   * The feedback twins keep tests/test_feedback.py's thresholds.  The port
-    draws its own RANSAC stream (a torch.Generator, not a JAX key) and has
-    only the fused refinement (refine_engine="pallas"); the "full"
+    draws its own RANSAC stream (a torch.Generator, not a JAX key) and runs
+    the fused refinement (refine_engine="pallas"); the "full"
     re-estimation mode is not ported, so the second twin runs "refine".
 
 `tests/test_torch_cuda.py` runs the feedback twins on the card through

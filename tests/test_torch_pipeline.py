@@ -195,7 +195,7 @@ def test_unported_options_raise():
     flow = torch.from_numpy(_rs_flow(24, 32))
     for change in (dict(use_acceleration=True),
                    dict(ransac_prescore_subsample=64),
-                   dict(refine_engine="xla")):
+                   dict(refine_winnow2_iters=4)):
         cfg = dataclasses.replace(tconfig.GT_FLOW_CONFIG, **change)
         with pytest.raises(NotImplementedError):
             tpipeline.estimate_from_flow(flow, INTR, GAMMA, cfg,
