@@ -8,7 +8,8 @@ bench.py's input and, held to the renderer's truth, on the castle pair,
 the solver slice (flow field -> RANSAC -> fused
 Schur-LM -> rectification) in both slice configurations, the estimation
 sharded over two ranks, every rectification engine, the STRESS.md protocol
-on its four full-HD scenes and the command-line interface, through the
+on its four full-HD scenes, the command-line interface and the
+acceleration model (k) on the castle, through the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
 each path against their plain PyTorch versions.
 
@@ -91,7 +92,21 @@ and the script exits non-zero; nothing is caught and continued):
               with --deep-flow --occlusion-mask --model-feedback,
               generate-sweep and sweep, test-flow; the files they write,
               tests/test_harness.py's gates on the GT flow, err_v 0.04 on
-              the dense flow, "OK" for both flows; launches of the phase
+              the dense flow, "OK" for both flows; launches of the phase;
+              single-run --acceleration on the GT flow, at the same gates
+  [11 accel]  the acceleration model: the castle rendered at full HD with
+              k 0.8 (the castle gate's gamma, v and w), its true flow into
+              estimate_with_feedback with (a) E2E_CONFIG (B1, B3, B2, k
+              free), (b) the castle gate's EST_CFG ("xla" engines), (c) (a)
+              with RANSAC's prescore (4096 pixels, keep 16), each gated at
+              tests/test_synthetic_consistency.py's |k - 0.8| < 0.2 and v
+              within 0.05 rad, with err_w, inliers, the hypothesis RANSAC
+              picked, pass 1's stage ms (prepare, minimal solve, scoring,
+              k-scan, refine) and launches; the device kernels of (a)
+              (torch.profiler); (d) B1 on (a)'s 1,536 all-k hypotheses
+              (invalid root slots included) and B2 / B3 (J = 4) with k free
+              against their plain versions, with their ms; (e) the clean
+              castle through dense flow into (a), ungated
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -209,6 +224,14 @@ WRONG_BASIN = 0.2
 CLI_SIZE = 600
 CLI_GT_GATES = {"err_w": 1e-3, "err_v": 0.02, "reprojection": 0.2}
 CLI_DEEP_ERR_V = 0.04
+
+# The acceleration phase (11): the castle gate's render with k 0.8 and its
+# true flow, held to tests/test_synthetic_consistency.py:111-123's
+# thresholds (|k - 0.8| < 0.2, v within 0.05 rad); case (c) adds RANSAC's
+# prescore.
+ACCEL_K = 0.8
+ACCEL_GATES = {"k_err": 0.2, "err_v": 0.05}
+ACCEL_PRESCORE = dict(ransac_prescore_subsample=4096, ransac_prescore_keep=16)
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -405,8 +428,10 @@ def estimation_launches(cfg):
     single += cfg.feedback_passes * (fb_iters + 1)
     if cfg.refine_engine != "pallas":
         multi = single = 0
-    # RANSAC scores on B1 on the card under either engine.
-    return {"score_hypotheses": 1, "lm_iter": single, "lm_iter_multi": multi}
+    # RANSAC scores on B1 on the card under either engine, its prescore
+    # too.
+    return {"score_hypotheses": 2 if cfg.ransac_prescore_subsample else 1,
+            "lm_iter": single, "lm_iter_multi": multi}
 
 
 def phase_device():
@@ -543,93 +568,12 @@ def phase_kernels(dev):
         k_all[top], tol)
     loss_delta = cfg.refine_loss_delta_px / math.sqrt(intr.fx * intr.fy)
     f32 = torch.float32
-    zero = torch.zeros_like(alpha)
     for j in (1, 4):
         name = "lm_iter" if j == 1 else "lm_iter_multi"
-        masks = inl_j[:j].to(f32).contiguous()
-        pxl = torch.stack([coords[:, 0], coords[:, 1], flow_n[:, 0],
-                           flow_n[:, 1], alpha, alpha_k,
-                           masks[0] if j == 1 else zero, zero]).to(f32)
-        rho = rho_j[:j].to(f32).contiguous()
-        state = rf.initial_state(v_all[top[:j]], w_all[top[:j]],
-                                 k_all[top[:j]], optimize_k=False,
-                                 init_lambda=1e-6, rel_tol=0.0)
-
-        def kernel(st, rp, rc):
-            if j == 1:
-                s, a, b = rk.lm_iter(st[0], pxl, rp, rc, loss_delta)
-                return s[None], a, b
-            return rk.lm_iter_multi(st, pxl, masks, rp, rc, loss_delta)
-
-        def plain(st, rp, rc):
-            if j == 1:
-                s, a, b = rk.lm_iter_plain(st[0], pxl, rp, rc, loss_delta)
-                return s[None], a, b
-            return rk.lm_iter_multi_plain(st, pxl, masks, rp, rc, loss_delta)
-
-        # One step from the same state: the bootstrap sweep, and (after two
-        # plain steps of history) a full step.  Both compared steps solve at
-        # unit damping: at the production damping the (v, rho) scale gauge
-        # leaves the 7x7 system nearly singular, and the solved delta's
-        # gauge component is float32 rounding in any two summation orders.
-        st, rp, rc = state, rho, rho
-        worst = 0
-        for step in range(4):
-            compared = step in (0, 3)
-            if compared:
-                st = st.clone()
-                st[:, rk.S_LAM] = 3.0  # an accept divides it by 3
-            ref = plain(st, rp, rc)
-            if compared:
-                got = kernel(st, rp, rc)
-                torch.cuda.synchronize()
-                for g, r in zip(got, ref):
-                    bad = rk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
-                    check(not bad, f"{name} one step vs plain: {bad[:5]}")
-                worst = max(worst, int(np.argmax(np.abs(
-                    got[0].cpu().numpy() - ref[0].cpu().numpy()))))
-            st, rp, rc = ref
-
-        # 21 sweeps (20 iterations): refine_pallas(_multi) vs a plain loop.
-        st_p, rp, rc = state, rho, rho
-        for _ in range(21):
-            st_p, rp, rc = plain(st_p, rp, rc)
-        if j == 1:
-            res = rf.refine_pallas(coords, flow_n, alpha, alpha_k,
-                                   masks[0] > 0.5, v_all[top[0]],
-                                   w_all[top[0]], k_all[top[0]], rho[0],
-                                   optimize_k=False, iterations=20,
-                                   rel_tol=0.0, loss_delta=loss_delta)
-            theta_k = torch.cat([res.v, res.w, res.k.reshape(1)])[None]
-            cost_k = res.cost.reshape(1)
-        else:
-            res = rf.refine_pallas_multi(
-                coords, flow_n, alpha, alpha_k, masks > 0.5, v_all[top],
-                w_all[top], k_all[top], rho, optimize_k=False,
-                iterations=20, rel_tol=0.0, loss_delta=loss_delta)
-            theta_k = torch.cat([res.v, res.w, res.k[:, None]], dim=1)
-            cost_k = res.cost
-        theta_k = theta_k.cpu().numpy().astype(np.float64)
-        theta_p = st_p[:, 0:7].cpu().numpy().astype(np.float64)
-        for s in range(j):
-            vk, vp = unit(theta_k[s, 0:3]), unit(theta_p[s, 0:3])
-            check(np.allclose(vk, vp, rtol=1e-4, atol=1e-6),
-                  f"{name} 21 sweeps: v direction {vk} vs plain {vp}")
-        check(np.allclose(theta_k[:, 3:6], theta_p[:, 3:6], rtol=1e-4,
-                          atol=0.0),
-              f"{name} 21 sweeps: w {theta_k[:, 3:6]} vs {theta_p[:, 3:6]}")
-        check(torch.allclose(cost_k, st_p[:, rk.S_COST], rtol=1e-4, atol=0.0),
-              f"{name} 21 sweeps: cost {cost_k} vs {st_p[:, rk.S_COST]}")
-        err = float(np.max(np.abs(theta_k - theta_p)))
-        ms = time_ms(lambda: kernel(state, rho, rho))
-        plain_ms = time_ms(lambda: plain(state, rho, rho))
-        out[name] = record(err, ms, plain_ms, lm_bytes(n, j), OPS_LM * n * j)
-        print(f"[3 kernels] {'B2' if j == 1 else 'B3'} {name} J={j} N={n} "
-              f"Huber delta={loss_delta:.4g}: one step matches plain (state "
-              f"rtol 1e-5; largest diff at slot {worst}); 21 sweeps v, w, "
-              f"cost within rtol 1e-4, theta max abs diff {err:.3e}; "
-              f"{ms:.3f} ms/iteration vs plain {plain_ms:.3f} ms, bound "
-              f"{out[name]['bound_ms']:.4f} ms", flush=True)
+        out[name], st, pxl, masks, rp, rc, rho = check_lm(
+            "[3 kernels]", coords, flow_n, alpha, alpha_k, v_all[top[:j]],
+            w_all[top[:j]], k_all[top[:j]], inl_j[:j], rho_j[:j], loss_delta,
+            optimize_k=False)
         b7 = check_split_lm(st, pxl, masks, rp, rc, loss_delta, coords,
                             flow_n, alpha, alpha_k, v_all[top[:j]],
                             w_all[top[:j]], k_all[top[:j]], rho)
@@ -657,6 +601,114 @@ def phase_kernels(dev):
           f"{rec['ms_j1']:.3f} ms/iteration, bound "
           f"{rec['bound_ms_j1']:.4f} ms", flush=True)
     return out
+
+
+def check_lm(tag, coords, flow_n, alpha, alpha_k, v0, w0, k0, inl, rho0,
+             loss_delta, optimize_k):
+    """B2 (one start) or B3 (J starts: v0, w0 (J, 3), k0 (J,), inl and
+    rho0 (J, N)) against its plain version: one step from the same state
+    (the bootstrap sweep, and a full step after two plain steps of history),
+    then 21 sweeps of refine_pallas(_multi) against a plain loop (v
+    direction, w, cost and, with k free, k within rtol 1e-4), and its ms.
+    Returns (record, the state after 4 plain steps, the pixel record, the
+    masks, rho_prev and rho_cand after the 21 plain sweeps, the depths)."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import refine_kernels as rk
+    from rs_sfm_tpu_torch.solver import refine_fused as rf
+
+    j, n = inl.shape[0], coords.shape[0]
+    name = "lm_iter" if j == 1 else "lm_iter_multi"
+    f32 = torch.float32
+    zero = torch.zeros_like(alpha)
+    masks = inl.to(f32).contiguous()
+    pxl = torch.stack([coords[:, 0], coords[:, 1], flow_n[:, 0],
+                       flow_n[:, 1], alpha, alpha_k,
+                       masks[0] if j == 1 else zero, zero]).to(f32)
+    rho = rho0.to(f32).contiguous()
+    state = rf.initial_state(v0, w0, k0, optimize_k=optimize_k,
+                             init_lambda=1e-6, rel_tol=0.0)
+
+    def kernel(st, rp, rc):
+        if j == 1:
+            s, a, b = rk.lm_iter(st[0], pxl, rp, rc, loss_delta)
+            return s[None], a, b
+        return rk.lm_iter_multi(st, pxl, masks, rp, rc, loss_delta)
+
+    def plain(st, rp, rc):
+        if j == 1:
+            s, a, b = rk.lm_iter_plain(st[0], pxl, rp, rc, loss_delta)
+            return s[None], a, b
+        return rk.lm_iter_multi_plain(st, pxl, masks, rp, rc, loss_delta)
+
+    # One step from the same state: the bootstrap sweep, and (after two
+    # plain steps of history) a full step.  Both compared steps solve at
+    # unit damping: at the production damping the (v, rho) scale gauge
+    # leaves the 7x7 system nearly singular, and the solved delta's gauge
+    # component is float32 rounding in any two summation orders.
+    st, rp, rc = state, rho, rho
+    worst = 0
+    for step in range(4):
+        compared = step in (0, 3)
+        if compared:
+            st = st.clone()
+            st[:, rk.S_LAM] = 3.0  # an accept divides it by 3
+        ref = plain(st, rp, rc)
+        if compared:
+            got = kernel(st, rp, rc)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                bad = rk.state_mismatches(g.cpu().numpy(), r.cpu().numpy())
+                check(not bad, f"{name} one step vs plain: {bad[:5]}")
+            worst = max(worst, int(np.argmax(np.abs(
+                got[0].cpu().numpy() - ref[0].cpu().numpy()))))
+        st, rp, rc = ref
+
+    # 21 sweeps (20 iterations): refine_pallas(_multi) vs a plain loop.
+    st_p, rp, rc = state, rho, rho
+    for _ in range(21):
+        st_p, rp, rc = plain(st_p, rp, rc)
+    kw = dict(optimize_k=optimize_k, iterations=20, rel_tol=0.0,
+              loss_delta=loss_delta)
+    if j == 1:
+        res = rf.refine_pallas(coords, flow_n, alpha, alpha_k, masks[0] > 0.5,
+                               v0[0], w0[0], k0[0], rho[0], **kw)
+        theta_k = torch.cat([res.v, res.w, res.k.reshape(1)])[None]
+        cost_k = res.cost.reshape(1)
+    else:
+        res = rf.refine_pallas_multi(coords, flow_n, alpha, alpha_k,
+                                     masks > 0.5, v0, w0, k0, rho, **kw)
+        theta_k = torch.cat([res.v, res.w, res.k[:, None]], dim=1)
+        cost_k = res.cost
+    theta_k = theta_k.cpu().numpy().astype(np.float64)
+    theta_p = st_p[:, 0:7].cpu().numpy().astype(np.float64)
+    for s in range(j):
+        vk, vp = unit(theta_k[s, 0:3]), unit(theta_p[s, 0:3])
+        check(np.allclose(vk, vp, rtol=1e-4, atol=1e-6),
+              f"{name} 21 sweeps: v direction {vk} vs plain {vp}")
+    check(np.allclose(theta_k[:, 3:6], theta_p[:, 3:6], rtol=1e-4, atol=0.0),
+          f"{name} 21 sweeps: w {theta_k[:, 3:6]} vs {theta_p[:, 3:6]}")
+    if optimize_k:
+        check(np.allclose(theta_k[:, 6], theta_p[:, 6], rtol=1e-4, atol=0.0),
+              f"{name} 21 sweeps: k {theta_k[:, 6]} vs {theta_p[:, 6]}")
+    check(torch.allclose(cost_k, st_p[:, rk.S_COST], rtol=1e-4, atol=0.0),
+          f"{name} 21 sweeps: cost {cost_k} vs {st_p[:, rk.S_COST]}")
+    err = float(np.max(np.abs(theta_k - theta_p)))
+    ms = time_ms(lambda: kernel(state, rho, rho))
+    plain_ms = time_ms(lambda: plain(state, rho, rho))
+    rec = record(err, ms, plain_ms, lm_bytes(n, j), OPS_LM * n * j)
+    free = ", k free" if optimize_k else ""
+    print(f"{tag} {'B2' if j == 1 else 'B3'} {name} J={j} N={n}{free} Huber "
+          f"delta={loss_delta:.4g}: one step matches plain (state rtol 1e-5; "
+          f"largest diff at slot {worst}); 21 sweeps v, w"
+          f"{', k' if optimize_k else ''}, cost within rtol 1e-4, theta max "
+          f"abs diff {err:.3e}"
+          + (f" (k {theta_k[:, 6]} vs plain {theta_p[:, 6]})"
+             if optimize_k else "")
+          + f"; {ms:.3f} ms/iteration vs plain {plain_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms", flush=True)
+    return rec, st, pxl, masks, rp, rc, rho
 
 
 def check_split_lm(state, pxl, masks, rho_prev, rho_cand, loss_delta,
@@ -1485,7 +1537,8 @@ def phase_castle(dev):
         stages = read()
         check(b1.launches > launched, f"castle {case}: B1 launched")
         shown = " ".join(
-            f"{k}={v:.4f}" + (f" (gate {gates[k]})" if gates else "")
+            f"{k}={v:.4f}" + (f" (gate {gates[k]})" if gates and k in gates
+                              else "")
             for k, v in got.items())
         print(f"[6b castle] {case}: {shown}; ms "
               + " ".join(f"{k}={v:.2f}" for k, v in stages.items()),
@@ -2003,6 +2056,254 @@ def phase_stress(dev, n_evals):
           + " ".join(f"{k}={v:.3f}" for k, v in ms.items()), flush=True)
 
 
+def accel_configs():
+    """Phase 11's estimations on the true flow, case: configuration: (a)
+    E2E_CONFIG (B1, B3, B2), (b) the castle gate's EST_CFG as written (the
+    "xla" engines), (c) (a) with RANSAC's prescore; all with the
+    acceleration model."""
+    import dataclasses
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, PipelineConfig
+
+    prod = dataclasses.replace(E2E_CONFIG, use_acceleration=True)
+    return {"a E2E_CONFIG": prod,
+            "b EST_CFG": PipelineConfig(**FULLHD_EST_CFG,
+                                        use_acceleration=True),
+            "c prescore": dataclasses.replace(prod, **ACCEL_PRESCORE)}
+
+
+def accel_errors(res):
+    """{err_v, err_w, k, k_err, inliers} of an estimate of the castle's
+    motion (eval/metrics: the angle of v to the truth, the rotation
+    error)."""
+    from rs_sfm_tpu_torch.eval.gate import V_TRUE, W_TRUE
+    from rs_sfm_tpu_torch.eval.metrics import (rotation_error,
+                                               translation_error)
+
+    k = float(res.k)
+    return {"err_v": float(translation_error(res.v.double(), V_TRUE)),
+            "err_w": float(rotation_error(res.w.double(), W_TRUE)),
+            "k": k, "k_err": abs(k - ACCEL_K),
+            "inliers": int(res.num_inliers)}
+
+
+def accel_estimate(flow, intr, cfg, generator=None, sample_indices=None):
+    """(estimate_with_feedback's result, its pass 1 run again with stage
+    marks on the same draws, {stage: ms} of that run (CUDA events; empty on
+    the CPU))."""
+    from rs_sfm_tpu_torch.solver.pipeline import (estimate_from_flow,
+                                                  estimate_with_feedback)
+
+    state = None if generator is None else generator.get_state()
+    res = estimate_with_feedback(flow, intr, GAMMA, cfg, generator,
+                                 sample_indices=sample_indices)
+    if state is not None:
+        generator.set_state(state)
+    if not flow.is_cuda:
+        return res, estimate_from_flow(flow, intr, GAMMA, cfg, generator,
+                                       sample_indices=sample_indices), {}
+    mark, read = stage_marks()
+    first = estimate_from_flow(flow, intr, GAMMA, cfg, generator,
+                               sample_indices=sample_indices, timer=mark)
+    return res, first, read()
+
+
+def show(values):
+    return " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in values.items())
+
+
+def accel_cpu_check(npz="build/accel_gate_jax.npz"):
+    """Phase 11's three estimations on the CPU, on the flow and RANSAC draws
+    that scripts/accel_gate_jax.py saved (the castle with k 0.8, 270x480 by
+    default), beside the JAX package's values from the same draws for
+    EST_CFG and for EST_CFG with the prescore.  Run from the repository
+    root:
+        python3 -c "import runpy; runpy.run_path('chip_smoke.py')
+                    ['accel_cpu_check']()"
+    """
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from rs_sfm_tpu_torch.data.synthetic import default_intrinsics
+
+    torch.set_num_threads(4)
+    saved = np.load(npz)
+    flow = torch.from_numpy(saved["flow"])
+    intr = default_intrinsics(*flow.shape[:2])
+    # The JAX rows: EST_CFG with the acceleration model, and with the
+    # prescore (the "xla" engines; the kernels' Pallas engines are not run).
+    jax_rows = {"b EST_CFG": "est_cfg", "c prescore": "prescore"}
+    for case, cfg in accel_configs().items():
+        t0 = time.perf_counter()
+        res, first, _ = accel_estimate(flow, intr, cfg,
+                                       sample_indices=saved["draws"])
+        got = accel_errors(res)
+        line = f"[11 accel, CPU] {case} {tuple(flow.shape[:2])}: {show(got)}"
+        if case in jax_rows:
+            line += "; JAX " + show({k: float(saved[f"{jax_rows[case]}_{k}"])
+                                     for k in got})
+        print(line + f"; picked v={first.ransac_v.numpy()} "
+              f"k={float(first.ransac_k):.6g}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_accel(dev):
+    """The acceleration model at full HD on the card (see the module
+    docstring); returns {kernel: its record at the acceleration model's
+    shapes} for B1, B2 and B3."""
+    import dataclasses
+
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.eval.gate import castle_truth, production_gate
+    from rs_sfm_tpu_torch.ops.kernels import score as sk
+    from rs_sfm_tpu_torch.solver.kscan import k_scan
+    from rs_sfm_tpu_torch.solver.minimal import calculate_velocities_all_k
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import (_score_hypotheses, ransac,
+                                                sample_valid_indices)
+
+    t_phase = time.perf_counter()
+    truth = castle_truth(H, W, dev, k=ACCEL_K)
+    intr, flow = truth.intr, truth.gt_flow
+    cases = accel_configs()
+    firsts = {}
+    for case, cfg in cases.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        accel_estimate(flow, intr, cfg, gen)  # warm-up
+        torch.cuda.synchronize()
+        wrap = reset_counts()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        res, first, stages = accel_estimate(flow, intr, cfg, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {k: fn.launches for k, fn in wrap.items()}
+        # The estimation with its feedback passes, then pass 1 again.
+        first_only = estimation_launches(dataclasses.replace(
+            cfg, feedback_passes=0))
+        expect = {k: c + first_only[k]
+                  for k, c in estimation_launches(cfg).items()}
+        got = {k: counts[k] for k in expect}
+        firsts[case] = first
+        errs = accel_errors(res)
+        print(f"[11 accel] {case} {W}x{H} (true flow, k {ACCEL_K}): "
+              f"{show(errs)}; gates {ACCEL_GATES}; picked v="
+              f"{first.ransac_v.cpu().numpy()} w={first.ransac_w.cpu().numpy()}"
+              f" k={float(first.ransac_k):.6g}", flush=True)
+        print(f"[11 accel] {case} pass 1 ms (CUDA events): "
+              + " ".join(f"{k}={v:.2f}" for k, v in stages.items())
+              + f" total={sum(stages.values()):.2f}; estimate_with_feedback "
+              f"and pass 1 again {wall:.1f} ms host wall; launches {got}",
+              flush=True)
+        for field in ("v", "w", "k", "depth_map", "refine_cost"):
+            check(bool(torch.isfinite(getattr(res, field)).all()),
+                  f"accel {case}: {field} finite")
+        for key, gate in ACCEL_GATES.items():
+            check(errs[key] < gate, f"accel {case}: {key} {errs[key]} < "
+                  f"{gate}")
+        check(got == expect, f"accel {case}: launches {got} == {expect}")
+    # The device kernels of one production estimation (a).
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_kernels, busy, wall, top, _ = profile_pass(lambda: accel_estimate(
+        flow, intr, cases["a E2E_CONFIG"], gen)[0])
+    print(f"[11 accel] torch.profiler over (a) and its pass 1 again: "
+          f"{n_kernels} device kernels, busy {busy:.2f} ms of {wall:.2f} ms "
+          f"traced; most called operators: "
+          + ", ".join(f"{name} {calls}" for name, calls in top), flush=True)
+
+    # (d) B1 on (a)'s all-k hypotheses (its seed-0 draws), invalid root
+    # slots included.
+    cfg = cases["a E2E_CONFIG"]
+    coords, flow_n, alpha, alpha_k, valid = prepare_flow_inputs(
+        flow, intr, GAMMA, cfg)
+    n = coords.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = sample_valid_indices(gen, valid, cfg.ransac_trials)
+    f64 = torch.float64
+    w6, v6, k6, ok6 = calculate_velocities_all_k(
+        coords[idx].to(f64), flow_n[idx].to(f64), alpha[idx].to(f64),
+        alpha_k[idx].to(f64))
+    ok6 = ok6.reshape(-1)
+    v_all = torch.where(ok6[:, None], v6.reshape(-1, 3), 0.0)
+    w_all = torch.where(ok6[:, None], w6.reshape(-1, 3), 0.0)
+    k_all = k6.reshape(-1)
+    px = sk.pack_pixels(coords, flow_n, alpha, alpha_k, valid)
+    hy = sk.pack_hyps(v_all, w_all, k_all)
+    tol = cfg.ransac_tol
+    num_k, err_k = sk.score_hypotheses(px, hy, tol)
+    num_p, err_p = sk.score_hypotheses_plain(px, hy, tol)
+    torch.cuda.synchronize()
+    check(torch.equal(num_k, num_p), "B1 all-k inlier counts equal to plain")
+    check(torch.allclose(err_k, err_p, rtol=1e-5, atol=0.0),
+          "B1 all-k error sums within rtol 1e-5 of plain")
+    t = hy.shape[0]
+    n_valid = int((px[6] > 0.5).sum())
+    rec = record(float(torch.max(torch.abs(err_k - err_p))),
+                 time_ms(lambda: sk.score_hypotheses(px, hy, tol)),
+                 time_ms(lambda: sk.score_hypotheses_plain(px, hy, tol)),
+                 4 * (px.numel() + hy.numel() + 2 * t),
+                 OPS_SCORE * n_valid * t + OPS_SCORE_PIXEL * n_valid)
+    print(f"[11 accel] B1 score_hypotheses all-k N={n} ({n_valid} valid) "
+          f"T={t} ({int((~ok6).sum())} invalid root slots, k in "
+          f"[{float(k_all[ok6].min()):.3g}, {float(k_all[ok6].max()):.3g}]):"
+          f" counts equal (best {int(num_k.max())}), error sums max abs diff "
+          f"{rec['max_abs_err']:.3e}; {rec['ms']:.3f} ms vs plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms",
+          flush=True)
+    # B2 and B3 with k free from the seeds (a)'s pass 1 gives them: RANSAC's
+    # diversity top-4 of these draws, their inlier sets, through the
+    # k-scan.  (A spurious root's start left off the scan can run k off to
+    # 1e9 along a flat valley, where two summation orders part.)
+    rr = ransac(coords, flow_n, alpha, alpha_k, valid, use_k=True,
+                trials=cfg.ransac_trials, tolerance=tol, sample_indices=idx,
+                engine=cfg.ransac_engine, top_j=cfg.refine_starts,
+                top_j_diversity=cfg.refine_start_diversity)
+    _, _, rho_j, inl_j = _score_hypotheses(
+        coords, flow_n, alpha, alpha_k, valid, rr.top_v, rr.top_w, rr.top_k,
+        tol)
+    k_grid = torch.linspace(cfg.k_scan_min, cfg.k_scan_max,
+                            cfg.k_scan_points, dtype=coords.dtype, device=dev)
+    v0, w0, k0, rho0, _ = k_scan(coords, flow_n, alpha, alpha_k, inl_j,
+                                 rr.top_v, rr.top_w, k_grid,
+                                 iters=cfg.k_scan_iters)
+    print(f"[11 accel] B2/B3 seeds: RANSAC's top-{cfg.refine_starts} k "
+          f"{rr.top_k.cpu().numpy()}, after the k-scan {k0.cpu().numpy()}",
+          flush=True)
+    loss_delta = cfg.refine_loss_delta_px / math.sqrt(intr.fx * intr.fy)
+    lm = {}
+    for j in (1, 4):
+        lm[j] = check_lm("[11 accel]", coords, flow_n, alpha, alpha_k,
+                         v0[:j], w0[:j], k0[:j], inl_j[:j], rho0[:j],
+                         loss_delta, optimize_k=True)[0]
+
+    # (e) The clean castle through dense flow and the production
+    # estimation with the acceleration model: no gate yet.
+    wrap = reset_counts()
+    mark, read = stage_marks()
+    got = production_gate(truth, truth.i2, E2E_FLOW_PRESET, cfg,
+                          torch.Generator(device=dev).manual_seed(0),
+                          timer=mark)
+    stages = read()
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    print(f"[11 accel] dense flow (E2E_FLOW_PRESET), E2E_CONFIG with the "
+          f"acceleration model, k {ACCEL_K}: {show(got)} (no gate); ms "
+          + " ".join(f"{k}={v:.2f}" for k, v in stages.items())
+          + f"; launches {counts}", flush=True)
+    check(all(math.isfinite(v) for v in got.values()),
+          "accel dense flow: finite values")
+    for kname in ("score_hypotheses", "lm_iter", "lm_iter_multi", "warp",
+                  "match_search", "sor_sweeps", "median3_planes"):
+        check(counts[kname] > 0, f"accel dense flow launched {kname}")
+    print(f"[11 accel] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"score_hypotheses": rec, "lm_iter": lm[1],
+            "lm_iter_multi": lm[4]}
+
+
 def phase_cli(dev):
     """The CLI in process on the card (cli.main) in build/cli_smoke:
     generate, single-run on the GT flow and on the dense flow with the
@@ -2076,6 +2377,14 @@ def phase_cli(dev):
     for key, gate in CLI_GT_GATES.items():
         check(errs[key] < gate, f"cli single-run (GT flow): {key} "
               f"{errs[key]} < {gate}")
+    accel = work / "accel"
+    text = run("single-run", "--data", ds, "--out", accel, "--acceleration")
+    check_single_run(accel)
+    accel_errs = estimate_errors(ds, accel, text)
+    accel_errs["k"] = json.loads((accel / "estimate.json").read_text())["k"]
+    for key, gate in CLI_GT_GATES.items():
+        check(accel_errs[key] < gate, f"cli single-run --acceleration (GT "
+              f"flow): {key} {accel_errs[key]} < {gate}")
     deep = work / "deep"
     text = run("single-run", "--data", ds, "--out", deep, "--deep-flow",
                "--occlusion-mask", "--model-feedback")
@@ -2125,7 +2434,9 @@ def phase_cli(dev):
                                warmup=0) / 1e3
     print(f"[10 cli] {CLI_SIZE}x{CLI_SIZE}: GT flow "
           + " ".join(f"{k}={v:.4g}" for k, v in errs.items())
-          + f" (gates {CLI_GT_GATES}); dense flow "
+          + f" (gates {CLI_GT_GATES}); --acceleration on the GT flow "
+          + " ".join(f"{k}={v:.4g}" for k, v in accel_errs.items())
+          + "; dense flow "
           + " ".join(f"{k}={v:.4g}" for k, v in deep_errs.items())
           + f" (err_v gate {CLI_DEEP_ERR_V}); sweep "
           + "; ".join(" ".join(f"{k}={v:.4g}" for k, v in r.items())
@@ -2171,6 +2482,10 @@ def main():
     launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
     phase_stress(dev, args.stress_evals)
     phase_cli(dev)
+    for kname, rec in phase_accel(dev).items():
+        # The acceleration model's shapes beside the main path's.
+        records[kname].update({f"{key}_accel": rec[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms")})
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 

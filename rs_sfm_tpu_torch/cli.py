@@ -54,9 +54,6 @@ def _add_common(p):
 
 def _check_options(args):
     """NotImplementedError for the estimation flags the port lacks."""
-    if args.acceleration:
-        raise NotImplementedError("--acceleration: the acceleration model is "
-                                  "not ported (ROADMAP A4)")
     if args.flow_model == "auto":
         raise NotImplementedError("--flow-model auto: the per-pair preset "
                                   "probe is not ported (ROADMAP A5)")
@@ -371,7 +368,7 @@ def main(argv=None):
                        help="multi-start refinement (top-J RANSAC "
                             "hypotheses; 4 recommended on estimated flow)")
         p.add_argument("--acceleration", action="store_true",
-                       help="not ported (ROADMAP A4)")
+                       help="constant-acceleration model (estimate k)")
         p.add_argument("--global-shutter", action="store_true")
         p.add_argument("--no-refinement", action="store_true")
         p.add_argument("--deep-flow", action="store_true")

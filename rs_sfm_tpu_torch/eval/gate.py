@@ -34,10 +34,11 @@ class CastleTruth(NamedTuple):
     poses_t: torch.Tensor     # (H, 3)
 
 
-def castle_truth(rows: int, cols: int, device=None) -> CastleTruth:
-    """The castle pair rendered in float32 at (rows, cols) with γ 0.9 and
-    the gate's (v, w), its true flow and true depth.  `device` None means
-    the CUDA device (raises without one)."""
+def castle_truth(rows: int, cols: int, device=None,
+                 k: float = 0.0) -> CastleTruth:
+    """The castle pair rendered in float32 at (rows, cols) with γ 0.9, the
+    gate's (v, w) and acceleration factor k, its true flow and true depth.
+    `device` None means the CUDA device (raises without one)."""
     from rs_sfm_tpu_torch.data.dataset import true_depth_from_unprojection
     from rs_sfm_tpu_torch.data.synthetic import (castle_scene,
                                                  default_intrinsics,
@@ -46,7 +47,7 @@ def castle_truth(rows: int, cols: int, device=None) -> CastleTruth:
 
     intr = default_intrinsics(rows, cols)
     pair = render_pair(castle_scene(torch.float32, device), intr, rows, cols,
-                       gamma=GAMMA, k=0.0, v=V_TRUE, w=W_TRUE,
+                       gamma=GAMMA, k=k, v=V_TRUE, w=W_TRUE,
                        dtype=torch.float32)
     f1, f2 = pair.frame1, pair.frame2
     gt = true_flow(f1.rs_unproject, f2.poses_r, f2.poses_t, intr)
@@ -62,7 +63,7 @@ def production_gate(truth: CastleTruth, i2, flow_cfg, est_cfg,
     """The production path from (truth.i1, i2): flow_forward_backward,
     estimate_with_feedback on the unoccluded pixels, scanline poses and
     the default (packed24) rectification; returns {"epe_median",
-    "err_v", "err3d", "depth_rmse"} as floats.
+    "err_v", "err3d", "depth_rmse", "k"} as floats (k: the estimate).
 
     `timer`, if given, is called after each stage is issued: "flow_forward",
     "flow_backward" (dense flow), "estimate", "feedback" (the estimation),
@@ -95,4 +96,5 @@ def production_gate(truth: CastleTruth, i2, flow_cfg, est_cfg,
     epe_med = torch.quantile(epe.to(torch.float64), 0.5)
     mark("metrics")
     return {"epe_median": float(epe_med), "err_v": float(err_v),
-            "err3d": float(err3d), "depth_rmse": float(drmse)}
+            "err3d": float(err3d), "depth_rmse": float(drmse),
+            "k": float(res.k)}

@@ -28,6 +28,7 @@ from rs_sfm_tpu_torch.geom.camera import Intrinsics
 from rs_sfm_tpu_torch.parallel.distributed import axis_index, axis_size, psum
 from rs_sfm_tpu_torch.parallel.mesh import Mesh
 from rs_sfm_tpu_torch.solver.pipeline import (EstimationResult,
+                                              check_sharded_supported,
                                               estimate_from_flow)
 
 _PER_PIXEL = ("depth_map", "inlier_mask", "valid_mask")
@@ -71,8 +72,10 @@ def estimate_sharded(group_or_mesh, intr: Intrinsics, gamma,
     flow, which is invalid under cfg.flow_threshold and so adds to no sum,
     and the per-pixel outputs are cropped to the rank's real rows.  The
     draws of `generator` on the group's first rank are used by all;
-    `sample_indices` index the shared pool.
+    `sample_indices` index the shared pool.  The acceleration model and
+    the prescore raise NotImplementedError (ROADMAP A8).
     """
+    check_sharded_supported(cfg)
     group = (group_or_mesh.pixels_group if isinstance(group_or_mesh, Mesh)
              else group_or_mesh)
     if group is None:

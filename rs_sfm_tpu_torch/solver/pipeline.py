@@ -19,8 +19,12 @@ re-votes, inlier counts and sign flip sum over the group, so every scalar
 output is the same on all ranks and the per-pixel outputs are the rank's
 rows.  The sharded form runs the fused engine only.
 
-Not ported yet: the acceleration model and its k-scan, the second winnow
-stage, the two-stage prescore, the sharded "xla" refinement, and of the
+With the acceleration model (cfg.use_acceleration) RANSAC solves for k
+too, a k grid scan (solver/kscan.py) seeds each refinement start, and the
+LM frees k.
+
+Not ported yet: the second winnow stage, the sharded "xla" refinement,
+the sharded acceleration model and prescore (ROADMAP A8), and of the
 feedback options the basin re-vote, the decimated inpainting and the
 "full" re-estimation mode.
 """
@@ -38,6 +42,7 @@ from rs_sfm_tpu_torch.geom.camera import (Intrinsics, normalize_coords,
 from rs_sfm_tpu_torch.parallel.distributed import psum
 from rs_sfm_tpu_torch.solver.beta import get_alpha, get_alpha_k
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
+from rs_sfm_tpu_torch.solver.kscan import k_scan
 from rs_sfm_tpu_torch.solver.ransac import (RansacResult, _score_hypotheses,
                                             ransac)
 from rs_sfm_tpu_torch.solver.refine import refine as refine_xla
@@ -97,10 +102,6 @@ def prepare_flow_inputs(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
 
 def _check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for the options this port leaves out."""
-    if cfg.use_acceleration and not cfg.use_global_shutter:
-        raise NotImplementedError("the acceleration model is not ported yet")
-    if cfg.ransac_prescore_subsample:
-        raise NotImplementedError("the RANSAC prescore is not ported yet")
     if cfg.refine_winnow2_iters:
         raise NotImplementedError("the second winnow stage is not ported")
     if cfg.feedback_passes > 0:
@@ -114,6 +115,18 @@ def _check_supported(cfg: PipelineConfig) -> None:
             raise NotImplementedError(
                 f"feedback_mode {cfg.feedback_mode!r} is not ported (only "
                 f"'refine')")
+
+
+def check_sharded_supported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for the options the sharded estimation
+    leaves out, rather than run without them."""
+    if cfg.use_acceleration and not cfg.use_global_shutter:
+        raise NotImplementedError(
+            "the sharded estimation has no acceleration model: its sharded "
+            "k-scan is ROADMAP A8")
+    if cfg.ransac_prescore_subsample:
+        raise NotImplementedError(
+            "the sharded estimation has no RANSAC prescore (ROADMAP A8)")
 
 
 def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
@@ -143,19 +156,24 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         shared pool of cfg.ransac_sample_pool pixels per rank.
       row_offset, total_rows: the block's first global row and the image's
         row count (see prepare_flow_inputs); needed with `group`.
-      timer: optional callback, called with "prepare", "ransac" and
-        "refine" as each stage has been issued (stage timing with CUDA
-        events; nothing is synchronized here).
+      timer: optional callback, called with "prepare", "minimal" and
+        "scoring" (RANSAC's, without a warm start), "ransac", "kscan" (the
+        acceleration model's scan) and "refine" as each stage has been
+        issued (stage timing with CUDA events; nothing is synchronized
+        here).
     """
     _check_supported(cfg)
     xla = cfg.refine_engine != "pallas"
-    if group is not None and cfg.use_refinement and xla:
-        raise NotImplementedError(
-            "the sharded refinement runs the fused engine only "
-            "(refine_engine='pallas'); the sharded 'xla' one is ROADMAP A8")
+    if group is not None:
+        check_sharded_supported(cfg)
+        if cfg.use_refinement and xla:
+            raise NotImplementedError(
+                "the sharded refinement runs the fused engine only "
+                "(refine_engine='pallas'); the sharded 'xla' one is "
+                "ROADMAP A8")
     mark = timer if timer is not None else (lambda _name: None)
     h, w_cols = flow_px.shape[:2]
-    use_k = False
+    use_k = cfg.use_acceleration and not cfg.use_global_shutter
     tol = cfg.ransac_tol
     if prepared is None:
         prepared = prepare_flow_inputs(flow_px, intr, gamma, cfg,
@@ -183,9 +201,12 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                     trials=cfg.ransac_trials, tolerance=tol,
                     generator=generator, sample_indices=sample_indices,
                     chunk=cfg.ransac_chunk, engine=cfg.ransac_engine,
+                    prescore_subsample=cfg.ransac_prescore_subsample,
+                    prescore_keep=cfg.ransac_prescore_keep,
                     top_j=cfg.refine_starts if cfg.use_refinement else 1,
                     top_j_diversity=cfg.refine_start_diversity,
-                    group=group, sample_pool=cfg.ransac_sample_pool)
+                    group=group, sample_pool=cfg.ransac_sample_pool,
+                    timer=mark)
     mark("ransac")
 
     # Huber knee in normalized units.
@@ -195,6 +216,18 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     def score(vs, ws, ks):
         return _score_hypotheses(coords, flow_n, alpha, alpha_k, valid,
                                  vs, ws, ks, tol)
+
+    def run_kscan(masks, vs, ws, ks, rhos):
+        """The k-scan's seeds for the starts (acceleration model only)."""
+        if not (use_k and cfg.k_scan_points > 0):
+            return vs, ws, ks, rhos
+        k_grid = torch.linspace(cfg.k_scan_min, cfg.k_scan_max,
+                                cfg.k_scan_points, dtype=coords.dtype,
+                                device=coords.device)
+        vs, ws, ks, rhos, _ = k_scan(coords, flow_n, alpha, alpha_k, masks,
+                                     vs, ws, k_grid, iters=cfg.k_scan_iters)
+        mark("kscan")
+        return vs, ws, ks, rhos
 
     def refine(masks, vs, ws, ks, rhos, iters):
         """J-start refinement: the sharded LM under `group`."""
@@ -218,6 +251,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         # lexicographic best (#inliers desc, error asc; ties to the
         # earliest start).
         _, _, rho_j, inl_j = score(rr.top_v, rr.top_w, rr.top_k)
+        v0s, w0s, k0s, rho_j = run_kscan(inl_j, rr.top_v, rr.top_w, rr.top_k,
+                                         rho_j)
         winnow = (cfg.refine_winnow_iters
                   if 0 < cfg.refine_winnow_iters < cfg.refine_iterations
                   else 0)
@@ -235,7 +270,7 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                                      torch.inf)
             return torch.argmin(err_masked), num_g, rho_r, inl_r
 
-        ref = refine(inl_j, rr.top_v, rr.top_w, rr.top_k, rho_j,
+        ref = refine(inl_j, v0s, w0s, k0s, rho_j,
                      winnow if winnow else cfg.refine_iterations)
         best_j, num_g, rho_r, inl_r = rescore(ref)
         cand_v, cand_w, cand_k = ref.v, ref.w, ref.k
@@ -251,16 +286,17 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         inlier_mask = inl_r[best_j]
         num_inliers = num_g[best_j].to(torch.int32)
     elif cfg.use_refinement:
+        v0, w0, k0, rho0 = run_kscan(rr.inlier_mask, rr.v, rr.w, rr.k,
+                                     rr.inv_depth)
         if group is not None:
-            ref = refine(rr.inlier_mask[None], rr.v[None], rr.w[None],
-                         rr.k.reshape(1), rr.inv_depth[None],
-                         cfg.refine_iterations)
+            ref = refine(rr.inlier_mask[None], v0[None], w0[None],
+                         k0.reshape(1), rho0[None], cfg.refine_iterations)
             ref = ref._replace(v=ref.v[0], w=ref.w[0], k=ref.k[0],
                                cost=ref.cost[0])
         else:
             single = refine_xla if xla else refine_pallas
             ref = single(coords, flow_n, alpha, alpha_k, rr.inlier_mask,
-                         rr.v, rr.w, rr.k, rr.inv_depth, optimize_k=use_k,
+                         v0, w0, k0, rho0, optimize_k=use_k,
                          iterations=cfg.refine_iterations,
                          rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
         v, w, k = ref.v, ref.w, ref.k

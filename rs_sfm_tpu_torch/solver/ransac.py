@@ -13,11 +13,18 @@ Sampling draws from a `torch.Generator`.  Its stream differs from
 jax.random's, so `sample_indices=` injects precomputed draws (the tests
 hand both packages the JAX package's `sample_valid_indices`).
 
+With the acceleration model (`use_k`) each sample gives either one
+hypothesis, k by the reference's min-|real root| rule (k_mode "min"), or
+one per root of det Z(k) = 0 (k_mode "score": 6 per sample, a complex
+root's slot zeroed and voted −1).  The optional prescore ranks every
+hypothesis on a stratified pixel subsample and scores only the best
+`prescore_keep` on all pixels.
+
 Under scanline-block sharding (`group`), hypotheses are drawn from a pool
 of pixels shared by all ranks (`shared_sample_pool`), each rank scores them
 on its own pixels, and the (T, 2) vote table is summed over the group in
-one all-reduce.  The two-stage prescore and the all-k path are not ported
-yet.
+one all-reduce.  The sharded prescore and acceleration model are ROADMAP
+A8 (the pipeline raises for them).
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ from rs_sfm_tpu_torch.parallel.distributed import (axis_index, axis_size,
                                                    broadcast, psum)
 from rs_sfm_tpu_torch.solver.depth import estimate_inverse_depth
 from rs_sfm_tpu_torch.solver.flow_model import predict_flow
-from rs_sfm_tpu_torch.solver.minimal import calculate_velocities
+from rs_sfm_tpu_torch.solver.minimal import (calculate_velocities,
+                                             calculate_velocities_all_k)
 
 
 class RansacResult(NamedTuple):
@@ -111,8 +119,10 @@ def _score_hypotheses(coords, flow, alpha, alpha_k, valid_mask, v, w, k, tol):
     return num, ierr, rho, inlier
 
 
-def _diverse_top_j(score, v_all, top_j: int, diversity: float):
-    """Greedy diversity-filtered top-J (ransac.py:363-392).
+def _diverse_top_j(score, v_all, valid_h, top_j: int, diversity: float):
+    """Greedy diversity-filtered top-J (ransac.py:363-392); only valid
+    hypotheses fill a slot (an invalid root slot's v = 0 clashes with
+    nothing).
 
     The scan is 512 strictly sequential steps over 512x3 floats; on the card
     each step would be a handful of tiny launches, so the candidates' order
@@ -125,6 +135,7 @@ def _diverse_top_j(score, v_all, top_j: int, diversity: float):
     vn = v_all / torch.clamp(norms, min=1e-12)
     order_h = order[:m_scan].cpu().numpy()
     vn_h = vn[order[:m_scan]].cpu().numpy()
+    valid_h = valid_h[order[:m_scan]].cpu().numpy()
     cos_thr = np.cos(np.asarray(diversity, vn_h.dtype))
     sel = [int(order_h[0])] * top_j
     selv = np.zeros((top_j, 3), vn_h.dtype)
@@ -133,7 +144,7 @@ def _diverse_top_j(score, v_all, top_j: int, diversity: float):
         if cnt == top_j:
             break
         cv = vn_h[i]
-        if np.any(np.abs(selv[:cnt] @ cv) > cos_thr):
+        if not valid_h[i] or np.any(np.abs(selv[:cnt] @ cv) > cos_thr):
             continue
         sel[cnt] = int(order_h[i])
         selv[cnt] = cv
@@ -141,26 +152,52 @@ def _diverse_top_j(score, v_all, top_j: int, diversity: float):
     return torch.tensor(sel, dtype=torch.int64, device=score.device)
 
 
+def _score_votes(coords, flow, alpha, alpha_k, valid_mask, v, w, k, tol,
+                 chunk: int, kernel: bool):
+    """(num_inliers (T,) int32, inlier_error (T,)) of hypotheses v, w (T, 3),
+    k (T,): the scoring kernel (float32 error sums) when `kernel`, else the
+    plain scoring in the pixels' dtype, `chunk` hypotheses at a time."""
+    if kernel:
+        px = pack_pixels(coords, flow, alpha, alpha_k, valid_mask)
+        nums_f, ierrs = score_hypotheses(px, pack_hyps(v, w, k), float(tol))
+        return nums_f.to(torch.int32), ierrs.to(coords.dtype)
+    parts = [_score_hypotheses(coords, flow, alpha, alpha_k, valid_mask,
+                               v[c:c + chunk], w[c:c + chunk],
+                               k[c:c + chunk], tol)[:2]
+             for c in range(0, v.shape[0], chunk)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
            trials: int, tolerance: float, generator=None,
-           sample_indices=None, chunk: int = 64, engine: str = "xla",
+           sample_indices=None, chunk: int = 64, k_mode: str = "score",
+           engine: str = "xla", prescore_subsample: int = 0,
+           prescore_keep: int = 16, compat_negate_k: bool = False,
            top_j: int = 1, top_j_diversity: float = 0.3, group=None,
-           sample_pool: int = 1024) -> RansacResult:
+           sample_pool: int = 1024, timer=None) -> RansacResult:
     """Batched RANSAC (reference minimal::ransac, src/minimal.cc:209-306).
 
     Args:
       coords, flow: (N, 2) normalized coordinates and flow.
       alpha, alpha_k: (N,) RS factors; valid_mask: (N,) bool.
-      use_k: must be False (the acceleration path is not ported yet).
-      trials: number of hypotheses; tolerance: inlier threshold.
+      use_k: the constant-acceleration model (k per hypothesis).
+      trials: number of samples; tolerance: inlier threshold.
       generator: torch.Generator on the pixels' device for the sampling;
         ignored when `sample_indices` ((trials, 9) indices, e.g. the JAX
         package's draws) is given.
       chunk: hypotheses per pass of the "xla" engine on CPU tensors.
+      k_mode: with use_k, "score" expands each sample into a hypothesis
+        per root of det Z(k) (6 a sample; a complex root's slot has zero
+        motion and a vote of −1); "min" keeps the reference's min-|k| root.
       engine: "pallas" = the scoring kernel; "xla" = plain tensor ops in
         the pixels' dtype on CPU tensors, and the scoring kernel on CUDA
         tensors (its inlier counts are the plain version's, its error sums
         float32, as the "pallas" engine's are on either device).
+      prescore_subsample: > 0 ranks all hypotheses on this many pixels at a
+        fixed stride (the kernel on CUDA tensors, else the plain scoring,
+        under either engine) and scores the best `prescore_keep` on all
+        pixels; ranking is by count, then error sum, ties to the earliest.
+      compat_negate_k: the reference's sign of k (k_mode "min").
       top_j, top_j_diversity: multi-start outputs (RansacResult.top_*).
       group: process group when the pixels are this rank's scanline block
         of a sharded image (None = the whole image).  The draws then index
@@ -169,13 +206,16 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
         broadcast from the group's first rank), votes are summed over the
         group, and every scalar output is the same on all ranks;
         inv_depth and inlier_mask stay local.
+      timer: optional callback, called with "minimal" once the minimal
+        solves and "scoring" once the scoring have been issued.
 
     The minimal solver runs in CORE_DTYPE (float64).
     """
-    if use_k:
-        raise NotImplementedError(
-            "RANSAC with the acceleration model (all-k scoring) is not "
-            "ported yet")
+    mark = timer if timer is not None else (lambda _name: None)
+    if engine not in ("pallas", "xla"):
+        raise ValueError(f"unknown RANSAC engine {engine!r}")
+    if k_mode not in ("score", "min"):
+        raise ValueError(f"unknown k_mode {k_mode!r}")
     n = coords.shape[0]
     pc, pf, pa, pak, pv = coords, flow, alpha, alpha_k, valid_mask
     if group is not None:
@@ -197,23 +237,44 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
     u = pf[idx].to(CORE_DTYPE)
     a9 = pa[idx].to(CORE_DTYPE)
     ak9 = pak[idx].to(CORE_DTYPE)
-    w_all, v_all, k_all = calculate_velocities(q, u, a9, ak9, False)
-
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown RANSAC engine {engine!r}")
-    if engine == "pallas" or coords.is_cuda:
-        px = pack_pixels(coords, flow, alpha, alpha_k, valid_mask)
-        hy = pack_hyps(v_all, w_all, k_all)
-        nums_f, ierrs = score_hypotheses(px, hy, float(tolerance))
-        nums = nums_f.to(torch.int32)
-        ierrs = ierrs.to(coords.dtype)
+    if use_k and k_mode == "score":
+        w_all, v_all, k_all, valid_h = calculate_velocities_all_k(q, u, a9,
+                                                                  ak9)
+        w_all = w_all.reshape(-1, 3)
+        v_all = v_all.reshape(-1, 3)
+        k_all = k_all.reshape(-1)
+        valid_h = valid_h.reshape(-1)
+        # A complex root's slot gets zero motion; its vote is forced to -1.
+        w_all = torch.where(valid_h[:, None], w_all, 0.0)
+        v_all = torch.where(valid_h[:, None], v_all, 0.0)
     else:
-        parts = [_score_hypotheses(coords, flow, alpha, alpha_k, valid_mask,
-                                   v_all[c:c + chunk], w_all[c:c + chunk],
-                                   k_all[c:c + chunk], tolerance)[:2]
-                 for c in range(0, trials, chunk)]
-        nums = torch.cat([p[0] for p in parts])
-        ierrs = torch.cat([p[1] for p in parts])
+        w_all, v_all, k_all = calculate_velocities(
+            q, u, a9, ak9, use_k, compat_negate_k=compat_negate_k)
+        valid_h = torch.ones(k_all.shape, dtype=torch.bool,
+                             device=k_all.device)
+    mark("minimal")
+
+    if prescore_subsample and prescore_subsample < n:
+        # Stage 1: rank on a stratified subsample (the same pixels for all
+        # hypotheses), keep the best prescore_keep.
+        stride = max(n // prescore_subsample, 1)
+        sub = (torch.arange(prescore_subsample, device=coords.device)
+               * stride) % n
+        pn, pe = _score_votes(coords[sub], flow[sub], alpha[sub],
+                              alpha_k[sub], valid_mask[sub], v_all, w_all,
+                              k_all, tolerance, chunk, coords.is_cuda)
+        pn = torch.where(valid_h, pn, -1)
+        big_s = prescore_subsample * tolerance + 1.0
+        pre_score = pn.to(pe.dtype) * big_s - torch.where(
+            torch.isfinite(pe), pe, big_s)
+        top = torch.argsort(pre_score, descending=True,
+                            stable=True)[:prescore_keep]
+        w_all, v_all, k_all, valid_h = (w_all[top], v_all[top], k_all[top],
+                                        valid_h[top])
+
+    nums, ierrs = _score_votes(coords, flow, alpha, alpha_k, valid_mask,
+                               v_all, w_all, k_all, tolerance, chunk,
+                               engine == "pallas" or coords.is_cuda)
     n_total = n
     if group is not None:
         # ONE all-reduce of the stacked (T, 2) vote table; counts travel as
@@ -223,6 +284,8 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
         nums = votes[:, 0].to(torch.int32)
         ierrs = votes[:, 1]
         n_total = n * axis_size(group)
+    nums = torch.where(valid_h, nums, -1)
+    mark("scoring")
 
     # Exact two-stage lexicographic best: max count, then min error among
     # the count winners; ties keep the earliest trial.  The composite score
@@ -247,7 +310,8 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
 
     if top_j > 1:
         if top_j_diversity > 0.0:
-            tops = _diverse_top_j(score, v_all, top_j, top_j_diversity)
+            tops = _diverse_top_j(score, v_all, valid_h, top_j,
+                                  top_j_diversity)
         else:
             j_eff = min(top_j, score.shape[0])
             tops = torch.argsort(-score, stable=True)[:j_eff]

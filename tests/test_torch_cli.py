@@ -1,7 +1,8 @@
 """The port's command-line interface end to end on the CPU, pure torch (no
 JAX): generate → single-run → generate-sweep → sweep (and --resume) →
 test-flow at 32x32 with --device cpu, held to tests/test_harness.py's
-gates (err_w < 1e-3, err_v < 0.02, reprojection < 0.2); the flags the
+gates (err_w < 1e-3, err_v < 0.02, reprojection < 0.2), single-run with
+--acceleration too (and |k| < 0.2 on the k = 0 dataset); the flags the
 port lacks raise NotImplementedError, and --device cuda without a card
 raises instead of running on the CPU."""
 
@@ -69,6 +70,26 @@ def test_single_run_gt_flow(dataset, tmp_path, capsys):
     assert int(ply[2].split()[-1]) == len(ply) - 10 > 0.4 * 32 * 32
 
 
+def test_single_run_acceleration_gt_flow(dataset, tmp_path, capsys):
+    """--acceleration (the constant-acceleration model, k estimated) on the
+    GT flow of the k = 0 dataset: the same gates, k near 0."""
+    out = tmp_path / "res"
+    cli.main(["single-run", "--data", str(dataset), "--out", str(out),
+              "--acceleration"] + EST + CPU)
+    est = json.loads((out / "estimate.json").read_text())
+    v, w = np.array(est["v"]), np.array(est["w"])
+    v_true = np.array([0.12, -0.05, 0.08])
+    angle = np.arccos(abs(v @ v_true) / np.linalg.norm(v)
+                      / np.linalg.norm(v_true))
+    assert angle < 0.02
+    assert np.abs(w - [0.003, -0.002, 0.004]).max() < 1e-3
+    assert abs(est["k"]) < 0.2
+    text = capsys.readouterr().out
+    err3d = float(text.split("mean reprojection error:")[1].split()[0])
+    assert err3d < 0.2
+    assert (out / "gs_image.png").exists()
+
+
 def test_sweep_and_resume(tmp_path, capsys):
     sw = tmp_path / "sweep"
     cli.main(["generate-sweep", "--out", str(sw), "--size", "32",
@@ -110,7 +131,7 @@ def test_test_flow(dataset, capsys):
     assert lines[1].endswith("-> OK")
 
 
-@pytest.mark.parametrize("flags", [["--acceleration"],
+@pytest.mark.parametrize("flags", [["--acceleration", "--flow-model", "auto"],
                                    ["--flow-model", "auto"],
                                    ["--census-weight", "0.5"]])
 def test_unported_flags_raise(dataset, tmp_path, flags):

@@ -865,3 +865,129 @@ def test_cli_single_run_on_the_card(cuda_device, tmp_path, capsys):
     text = capsys.readouterr().out
     assert float(text.split("mean reprojection error:")[1].split()[0]) < 0.2
     assert (out / "point_cloud.ply").exists()
+
+
+def _accel_problem(device, n_side=64, k=0.6, trials=64, seed=4):
+    """The prepared inputs of a noise-free RS flow of random depths under
+    an accelerating motion (k), float32 on `device`, and `trials` 9-point
+    draws from it."""
+    from rs_sfm_tpu_torch.config import PipelineConfig
+    from rs_sfm_tpu_torch.geom.camera import Intrinsics
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+
+    rng = np.random.default_rng(seed)
+    f, gamma = 60.0, 0.9
+    ys, xs = np.meshgrid(np.arange(n_side, dtype=np.float64),
+                         np.arange(n_side, dtype=np.float64), indexing="ij")
+    coords = torch.from_numpy(np.stack([xs - n_side / 2.0,
+                                        ys - n_side / 2.0], -1).reshape(-1, 2)
+                              / f)
+    rho = torch.from_numpy(1.0 / rng.uniform(4.0, 9.0, size=n_side ** 2))
+    v = torch.tensor([0.2, -0.1, 0.15], dtype=torch.float64)
+    w = torch.tensor([0.003, -0.002, 0.004], dtype=torch.float64)
+    yy = torch.from_numpy(ys.reshape(-1))
+    fl = torch.zeros((n_side ** 2, 2), dtype=torch.float64)
+    for _ in range(6):
+        a = get_alpha(fl[:, 1] * f, n_side, gamma)
+        ak = get_alpha_k(yy, fl[:, 1] * f, n_side, gamma)
+        fl = predict_flow(coords, rho, v, w, k, a, ak)
+    flow = (fl * f).reshape(n_side, n_side, 2).float().to(device)
+    inputs = prepare_flow_inputs(
+        flow, Intrinsics(fx=f, fy=f, cx=n_side / 2.0, cy=n_side / 2.0),
+        gamma, PipelineConfig())
+    draws = torch.from_numpy(rng.integers(0, n_side ** 2, size=(trials, 9)))
+    return inputs, draws.to(device)
+
+
+@pytest.mark.cuda
+def test_score_kernel_all_k_hypotheses(cuda_device):
+    """B1 on the acceleration model's hypotheses: every root of det Z(k) of
+    64 samples (384 rows, k != 0), the complex roots' slots zero motion,
+    counts equal to the plain version's."""
+    from rs_sfm_tpu_torch.solver.minimal import calculate_velocities_all_k
+
+    (coords, flow_n, alpha, alpha_k, valid), draws = _accel_problem(
+        cuda_device)
+    f64 = torch.float64
+    w6, v6, k6, ok = calculate_velocities_all_k(
+        *(t[draws].to(f64) for t in (coords, flow_n, alpha, alpha_k)))
+    ok = ok.reshape(-1)
+    assert ok.any() and not ok.all()
+    hy = tscore.pack_hyps(torch.where(ok[:, None], v6.reshape(-1, 3), 0.0),
+                          torch.where(ok[:, None], w6.reshape(-1, 3), 0.0),
+                          k6.reshape(-1))
+    px = tscore.pack_pixels(coords, flow_n, alpha, alpha_k, valid)
+    num_k, err_k = tscore.score_hypotheses(px, hy, TOL)
+    num_p, err_p = tscore.score_hypotheses_plain(px, hy, TOL)
+    torch.cuda.synchronize()
+    assert torch.equal(num_k, num_p)
+    np.testing.assert_allclose(err_k.cpu().numpy(), err_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert float(num_k.max()) > 0.9 * valid.sum().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prescore", [0, 512])
+def test_ransac_all_k_on_the_card(cuda_device, prescore):
+    """The acceleration model's RANSAC on the card: B1 scores the prescore's
+    subsample and the shortlist (one launch each), the pick's count equals
+    its plain scoring's, and k is the motion's."""
+    from rs_sfm_tpu_torch.solver.ransac import ransac
+
+    (coords, flow_n, alpha, alpha_k, valid), draws = _accel_problem(
+        cuda_device)
+    before = tscore.score_hypotheses.launches
+    rr = ransac(coords, flow_n, alpha, alpha_k, valid, use_k=True,
+                trials=64, tolerance=TOL, sample_indices=draws,
+                prescore_subsample=prescore, top_j=4)
+    torch.cuda.synchronize()
+    assert tscore.score_hypotheses.launches == before + (2 if prescore
+                                                         else 1)
+    px = tscore.pack_pixels(coords, flow_n, alpha, alpha_k, valid)
+    num, _ = tscore.score_hypotheses_plain(
+        px, tscore.pack_hyps(rr.v[None], rr.w[None], rr.k.reshape(1)), TOL)
+    assert int(num[0]) == int(rr.num_inliers) > 0.9 * valid.sum().item()
+    assert abs(float(rr.k) - 0.6) < 1e-3
+    assert rr.top_v.shape == (4, 3) and torch.isfinite(rr.top_k).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", [1, 4])
+def test_lm_refinement_with_k_free_matches_plain(cuda_device, j):
+    """20 iterations of the fused refinement with k free (B2 at J = 1, B3
+    at J = 4) on the card against the same loop on the CPU (the plain
+    twins): v direction, w, k and the cost within rtol 1e-4 (float32 sums in
+    two orders), as chip_smoke.py's phase 3."""
+    from rs_sfm_tpu_torch.solver import refine_fused as rf
+
+    st, px, masks, rho = _lm_problem(j)
+    coords, flow = px[0:2].T.contiguous(), px[2:4].T.contiguous()
+    alpha, alpha_k = px[4].contiguous(), px[5].contiguous()
+    v0, w0, k0 = st[:, 0:3], st[:, 3:6], st[:, 6]
+    kw = dict(optimize_k=True, iterations=20, rel_tol=0.0, loss_delta=HUBER)
+
+    def run(device):
+        args = [t.to(device) for t in (coords, flow, alpha, alpha_k)]
+        m = masks.to(device) > 0.5
+        if j == 1:
+            res = rf.refine_pallas(*args, m[0], v0[0].to(device),
+                                   w0[0].to(device), k0[0].to(device),
+                                   rho[0].to(device), **kw)
+            return [t.reshape(1, -1).cpu().numpy().astype(np.float64)
+                    for t in (res.v, res.w, res.k, res.cost)]
+        res = rf.refine_pallas_multi(*args, m, v0.to(device), w0.to(device),
+                                     k0.to(device), rho.to(device), **kw)
+        return [t.reshape(j, -1).cpu().numpy().astype(np.float64)
+                for t in (res.v, res.w, res.k, res.cost)]
+
+    name = "lm_iter" if j == 1 else "lm_iter_multi"
+    before = getattr(trk, name).launches
+    got = run(cuda_device)
+    assert getattr(trk, name).launches == before + 21
+    want = run("cpu")
+    unit = lambda v: v / np.linalg.norm(v, axis=-1, keepdims=True)  # noqa
+    np.testing.assert_allclose(unit(got[0]), unit(want[0]), rtol=1e-4,
+                               atol=1e-6)
+    for g, wv in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, wv, rtol=1e-4, atol=0)
+    assert np.all(got[2][:, 0] != st[:, 6].numpy())  # k moved

@@ -25,6 +25,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax_reference import run_jitted
 
 from rs_sfm_tpu.config import PipelineConfig as JaxConfig
 from rs_sfm_tpu.flow import feedback as jfeedback
@@ -135,9 +136,9 @@ def test_estimate_with_feedback_matches_jax(problem, monkeypatch):
     cfg = tconfig.E2E_CONFIG
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     key = jax.random.PRNGKey(0)
-    rj = jax.jit(lambda f, m: jpipeline.estimate_with_feedback(
-        f, JINTR, GAMMA, jcfg, key, pixel_mask=m))(jnp.asarray(flow),
-                                                   jnp.asarray(mask))
+    rj = run_jitted(lambda f, m: jpipeline.estimate_with_feedback(
+        f, JINTR, GAMMA, jcfg, key, pixel_mask=m), jnp.asarray(flow),
+        jnp.asarray(mask))
     valid = (jpipeline.prepare_flow_inputs(jnp.asarray(flow), JINTR, GAMMA,
                                            jcfg)[4]
              & jnp.asarray(mask).reshape(-1))

@@ -76,9 +76,17 @@ def test_calculate_velocities_matches_jax(make, seed):
 
 
 def test_calculate_velocities_rejects_k_path():
+    """The k path keeps only real roots of det Z(k): each sample's k is one
+    of its roots with |imaginary part| < 1e-5 (the least in magnitude), or
+    0 where none is real (tests/test_torch_kscan.py holds it to JAX)."""
     q, u, a, ak = (torch.tensor(x) for x in _random_samples(3))
-    with pytest.raises(NotImplementedError):
-        tmin.calculate_velocities(q, u, a, ak, True)
+    w, v, k = tmin.calculate_velocities(q, u, a, ak, True)
+    re, im = tmin.estimate_k_roots(tmin.build_z_columns(q, u), a, ak)
+    real = torch.abs(im) < 1e-5
+    least = torch.where(real, torch.abs(re), torch.inf).amin(dim=-1)
+    assert torch.equal(torch.abs(k), torch.where(real.any(-1), least, 0.0))
+    assert (~real).any()
+    assert torch.isfinite(w).all() and torch.isfinite(v).all()
 
 
 @pytest.mark.parametrize("n", [3, 9])

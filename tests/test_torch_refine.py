@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from jax_reference import run_jitted
 
 from rs_sfm_tpu.ops.pallas import refine_kernels as jrk
 from rs_sfm_tpu.solver.beta import get_alpha, get_alpha_k
@@ -247,8 +248,9 @@ def test_refine_multi_start_matches_jax():
     args = (p["coords"], p["flow"], p["alpha"], p["alpha_k"], masks > 0.5,
             state[:, 0:3], state[:, 3:6], state[:, 6], rho0)
     kw = dict(optimize_k=True, iterations=8, rel_tol=0.0, loss_delta=HUBER)
-    ref = j_refine_multi(*[jnp.asarray(a) for a in args], interpret=True,
-                         tile=N, **kw)
+    ref = run_jitted(lambda *a: j_refine_multi(*a, interpret=True, tile=N,
+                                               **kw),
+                     *[jnp.asarray(a) for a in args])
     got = tref.refine_pallas_multi(*_torch(*args), **kw)
     _assert_refined(got, ref)
     gauge_free = lambda r: (np.asarray(r.inv_depth, np.float64)

@@ -26,6 +26,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax_reference import run_jitted
 
 from rs_sfm_tpu.config import PipelineConfig as JaxConfig
 from rs_sfm_tpu.geom.camera import Intrinsics as JaxIntrinsics
@@ -163,19 +164,31 @@ def _gt_flow(seed=3):
     return flow
 
 
+@pytest.fixture(scope="module")
+def jax_estimates():
+    """The JAX estimation of every case on one flow, in one compiled
+    function, in which the winnow case is the feedback case's first
+    pass."""
+    jintr = JaxIntrinsics(**dataclasses.asdict(INTR))
+    key = jax.random.PRNGKey(2)
+
+    def all_cases(flow):
+        return {name: j_estimate(flow, jintr, GAMMA,
+                                 JaxConfig(**dataclasses.asdict(cfg)), key)
+                for name, cfg in CASES.items()}
+
+    return key, run_jitted(all_cases, jnp.asarray(_gt_flow()))
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_estimation_xla_engine_matches_jax(name):
+def test_estimation_xla_engine_matches_jax(name, jax_estimates):
     cfg = CASES[name]
     assert cfg.refine_engine == "xla" and cfg.ransac_engine == "xla"
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     jintr = JaxIntrinsics(**dataclasses.asdict(INTR))
     flow = _gt_flow()
-    key = jax.random.PRNGKey(2)
-    # Jitted only with the feedback passes, whose op-by-op run is slower
-    # than their compile.
-    estimate = (jax.jit(j_estimate, static_argnums=(1, 2, 3))
-                if cfg.feedback_passes else j_estimate)
-    want = estimate(jnp.asarray(flow), jintr, GAMMA, jcfg, key)
+    key, wants = jax_estimates
+    want = wants[name]
     valid = j_prepare(jnp.asarray(flow), jintr, GAMMA, jcfg)[4]
     idx = np.array(jransac.sample_valid_indices(key, valid,
                                                 cfg.ransac_trials))
