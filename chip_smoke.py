@@ -61,12 +61,22 @@ and the script exits non-zero; nothing is caught and continued):
               engines: solver/refine.py's LM, B1 for RANSAC), each case
               launching B1, and the packed24 rectification:
               flow EPE median, err_v, err3d and depth RMSE beside their
-              gates, stage ms; then the clean pair through E2E_FLOW_PRESET,
-              ungated
+              gates, stage ms; the clean pair into E2E_CONFIG with
+              feedback_mode "full" (each feedback pass the whole schedule
+              again) at the clean gates, with each pass's RANSAC pick, the
+              feedback stage's ms and its launches; then the clean pair
+              through E2E_FLOW_PRESET, ungated
   [7 sharded] the estimation at full HD sharded over 2 ranks that share the
               one card over gloo (NCCL refuses two ranks on one device):
-              both ranks' scalars bit-identical, and within gates of the
-              unsharded pass on the same hypotheses; B7 launches per rank
+              (a) ESTIMATION_CONFIG on bench.py's flow; on the castle's
+              true flow with k 0.8 (phase 11's input), (b) E2E_CONFIG and
+              (c) the castle gate's EST_CFG ("xla" engines), both with the
+              acceleration model and the prescore; each with both ranks'
+              scalars bit-identical, within gates of the unsharded pass on
+              the same draws (v, w, k, inlier masks), (b) and (c) also at
+              the acceleration gate; launches per rank (B1; B7 under the
+              fused engine), pass ms per rank beside the unsharded pass,
+              global_mesh() over the ranks
   [8 rectify] B8 zbuffer_splat vs its plain version (bit-exact) on the e2e
               pass's depth map and poses and on the castle's frame 1 (its
               true depth and poses): live splats, hit targets, ms and the
@@ -93,9 +103,14 @@ and the script exits non-zero; nothing is caught and continued):
               generate-sweep and sweep, test-flow; the files they write,
               tests/test_harness.py's gates on the GT flow, err_v 0.04 on
               the dense flow, "OK" for both flows; launches of the phase;
-              single-run --acceleration on the GT flow, at the same gates
+              single-run --acceleration on the GT flow, at the same gates;
+              single-run --flow-model auto, which must print "variational";
+              then the auto preset's probe on phase 6b's full-HD clean and
+              photometric pairs (variational and robust, as
+              tests/test_fullhd_flow.py's gate), its statistics and ms
   [11 accel]  the acceleration model: the castle rendered at full HD with
-              k 0.8 (the castle gate's gamma, v and w), its true flow into
+              k 0.8 (the castle gate's gamma, v and w; rendered in phase
+              7), its true flow into
               estimate_with_feedback with (a) E2E_CONFIG (B1, B3, B2, k
               free), (b) the castle gate's EST_CFG ("xla" engines), (c) (a)
               with RANSAC's prescore (4096 pixels, keep 16), each gated at
@@ -111,6 +126,7 @@ The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -130,6 +146,14 @@ REPEATS = 20
 # 7): the sums are added in another order, so the gates of float32
 # summation order the CPU tests use (tests/test_torch_parallel.py).
 SHARDED_GATES = {"v_direction": 2e-4, "w": 1e-5, "inlier_share": 1e-3}
+# The same with the acceleration model and the prescore (phase 7 (b), (c)),
+# on the castle's true flow, with the |k| difference.  Each rank prescores
+# 4096 pixels of its block, so the prescore's pixels are not the unsharded
+# pass's.  Measured on an NVIDIA H100: v 2.4e-8 and 3.6e-8, w 1.2e-10 and
+# 2.3e-10, k 6.0e-8 and 2.4e-7, the inlier masks equal; the gates leave
+# 30x or more.
+SHARDED_ACCEL_GATES = {"v_direction": 1e-6, "w": 1e-8, "k": 1e-5,
+                       "inlier_share": 1e-3}
 # Card-vs-CPU gates of the 270x480 e2e parity (phase 5).  Measured on an
 # NVIDIA H100: the flow and the occlusion mask bit-exact (every kernel and
 # every plain op rounds as IEEE float32 does), v 9e-7 and w 7e-9 apart
@@ -424,14 +448,20 @@ def estimation_launches(cfg):
                  else cfg.refine_iterations + 1)
     else:
         single = cfg.refine_iterations + 1
-    fb_iters = cfg.feedback_refine_iterations or cfg.refine_iterations
-    single += cfg.feedback_passes * (fb_iters + 1)
-    if cfg.refine_engine != "pallas":
-        multi = single = 0
     # RANSAC scores on B1 on the card under either engine, its prescore
     # too.
-    return {"score_hypotheses": 2 if cfg.ransac_prescore_subsample else 1,
-            "lm_iter": single, "lm_iter_multi": multi}
+    score = 2 if cfg.ransac_prescore_subsample else 1
+    if cfg.feedback_mode == "full":
+        # Each feedback pass runs the whole schedule again.
+        reps = 1 + cfg.feedback_passes
+        multi, single, score = multi * reps, single * reps, score * reps
+    else:
+        fb_iters = cfg.feedback_refine_iterations or cfg.refine_iterations
+        single += cfg.feedback_passes * (fb_iters + 1)
+    if cfg.refine_engine != "pallas":
+        multi = single = 0
+    return {"score_hypotheses": score, "lm_iter": single,
+            "lm_iter_multi": multi}
 
 
 def phase_device():
@@ -1525,17 +1555,24 @@ def phase_castle(dev):
              for case, (preset, gates) in CASTLE_GATES.items()
              for name, cfg in (("E2E_CONFIG", E2E_CONFIG),
                                ("EST_CFG", est))]
+    # feedback_mode "full" (each feedback pass the whole schedule again, on
+    # its own generator) at the clean gate.
+    full = dataclasses.replace(E2E_CONFIG, feedback_mode="full")
+    cases.append(("clean, E2E_CONFIG feedback_mode full",
+                  get_flow_preset(CASTLE_GATES["clean"][0]), truth.i2,
+                  CASTLE_GATES["clean"][1], full))
     cases.append(("clean, E2E_FLOW_PRESET, E2E_CONFIG (no gate)",
                   E2E_FLOW_PRESET, truth.i2, None, E2E_CONFIG))
     b1 = wrappers()["score_hypotheses"]
     for case, flow_cfg, i2, gates, est_cfg in cases:
-        launched = b1.launches
+        wrap = reset_counts()
         mark, read = stage_marks()
-        got = production_gate(truth, i2, flow_cfg, est_cfg,
-                              torch.Generator(device=dev).manual_seed(0),
-                              timer=mark)
+        with record_passes() as passes:
+            got = production_gate(truth, i2, flow_cfg, est_cfg,
+                                  torch.Generator(device=dev).manual_seed(0),
+                                  timer=mark)
         stages = read()
-        check(b1.launches > launched, f"castle {case}: B1 launched")
+        check(b1.launches > 0, f"castle {case}: B1 launched")
         shown = " ".join(
             f"{k}={v:.4f}" + (f" (gate {gates[k]})" if gates and k in gates
                               else "")
@@ -1543,28 +1580,67 @@ def phase_castle(dev):
         print(f"[6b castle] {case}: {shown}; ms "
               + " ".join(f"{k}={v:.2f}" for k, v in stages.items()),
               flush=True)
+        if est_cfg.feedback_mode == "full":
+            expect = estimation_launches(est_cfg)
+            counts = {k: wrap[k].launches for k in expect}
+            check(counts == expect, f"castle {case}: launches {counts} == "
+                  f"{expect}")
+            print(f"[6b castle] {case}: each pass's RANSAC pick (v, w, "
+                  f"inliers): "
+                  + "; ".join(f"pass {i + 1} v={r.ransac_v.cpu().numpy()} "
+                              f"w={r.ransac_w.cpu().numpy()} "
+                              f"{int(r.num_inliers)}"
+                              for i, r in enumerate(passes))
+                  + f"; feedback stage {stages['feedback']:.2f} ms; "
+                  f"launches {counts}", flush=True)
+            check(len(passes) == 1 + est_cfg.feedback_passes,
+                  f"castle {case}: {len(passes)} RANSAC passes")
         if gates:
             for k, gate in gates.items():
                 check(got[k] <= gate, f"castle {case}: {k} {got[k]} <= {gate}")
-    return truth
+    return truth, i2p
 
 
-def sharded_rank(rank, world, flow_np, intr, draws, device):
+@contextlib.contextmanager
+def record_passes():
+    """Collects the result of every estimate_from_flow call that
+    estimate_with_feedback makes meanwhile (one a pass)."""
+    from rs_sfm_tpu_torch.solver import pipeline
+
+    inner = pipeline.estimate_from_flow
+    results = []
+
+    def recording(*args, **kwargs):
+        results.append(inner(*args, **kwargs))
+        return results[-1]
+
+    pipeline.estimate_from_flow = recording
+    try:
+        yield results
+    finally:
+        pipeline.estimate_from_flow = inner
+
+
+def sharded_rank(rank, world, flow_np, intr, draws, device, cfg=None):
     """One rank of phase 7 (run by parallel.launch.spawn in a fresh process
     on `device`, card 0 here): a warm-up pass, then one timed pass of the
-    sharded estimation with the launch counts reset just before it; the
-    draws go to the device first."""
+    sharded estimation (cfg, by default ESTIMATION_CONFIG) with the launch
+    counts reset just before it; the draws go to the device first.  Also
+    builds global_mesh() over the ranks."""
     import torch
     import torch.distributed as dist
 
     from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG
     from rs_sfm_tpu_torch.parallel.api import estimate_sharded
+    from rs_sfm_tpu_torch.parallel.distributed import global_mesh
 
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    run = estimate_sharded(dist.group.WORLD, intr, GAMMA, ESTIMATION_CONFIG)
+    cfg = cfg or ESTIMATION_CONFIG
+    run = estimate_sharded(dist.group.WORLD, intr, GAMMA, cfg,
+                           pool_per_shard=cfg.ransac_sample_pool)
     flow = torch.from_numpy(flow_np).to(dev)
     draws = torch.from_numpy(draws).to(dev)
     run(flow, sample_indices=draws)
@@ -1577,33 +1653,51 @@ def sharded_rank(rank, world, flow_np, intr, draws, device):
     return {"v": res.v.cpu().numpy(), "w": res.w.cpu().numpy(),
             "k": res.k.cpu().numpy(), "num_inliers": int(res.num_inliers),
             "rows": res.depth_map.shape[0], "ms": ms,
-            "launches": {k: fn.launches for k, fn in wrap.items()}}
+            "inlier_mask": res.inlier_mask.cpu().numpy(),
+            "launches": {k: fn.launches for k, fn in wrap.items()},
+            "mesh": global_mesh().shape}
 
 
-def phase_sharded(dev):
-    """The estimation sharded over 2 ranks on the one card; returns rank 0's
-    launch counts of the timed pass."""
+def pool_draws(flow, intr, cfg, world, seed):
+    """(draws into the valid pixels of the pool that estimate_sharded
+    shares over `world` ranks, the same pixels as indices into the whole
+    image, on the flow's device)."""
     import numpy as np
     import torch
 
-    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG as cfg
     from rs_sfm_tpu_torch.parallel.api import pool_pixels
-    from rs_sfm_tpu_torch.parallel.launch import spawn
-    from rs_sfm_tpu_torch.solver.pipeline import (estimate_from_flow,
-                                                  prepare_flow_inputs)
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
     from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
 
-    world = 2
-    flow, intr = slice_inputs(dev)
-    n = H * W
-    # Draws into the shared pool, and the same pixels for the unsharded pass.
+    h, w = flow.shape[:2]
+    n = h * w
     valid = prepare_flow_inputs(flow, intr, GAMMA, cfg)[4].cpu().numpy()
-    pixel = pool_pixels(H, W, world, cfg.ransac_sample_pool)
+    pixel = pool_pixels(h, w, world, cfg.ransac_sample_pool)
     pool_valid = valid[np.minimum(pixel, n - 1)] & (pixel < n)
-    draws = sample_valid_indices(torch.Generator().manual_seed(4),
+    draws = sample_valid_indices(torch.Generator().manual_seed(seed),
                                  torch.from_numpy(pool_valid),
                                  cfg.ransac_trials).numpy()
-    picked = torch.from_numpy(pixel[draws]).to(dev)
+    return draws, torch.from_numpy(pixel[draws]).to(flow.device)
+
+
+def sharded_run(case, flow, intr, cfg, gates, truth_gates=None):
+    """One sharded estimation over 2 ranks on the card against the
+    unsharded pass on the same draws: both ranks bit-identical, the gates
+    (v direction, w, |k| difference, inlier share), the launches per rank
+    (B1 per rank, B7 under the fused engine), and, given `truth_gates`,
+    the castle's acceleration gate.  Returns rank 0's launch counts."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.parallel.launch import spawn
+    from rs_sfm_tpu_torch.solver.pipeline import estimate_from_flow
+
+    import dataclasses
+
+    world = 2
+    h, w = flow.shape[:2]
+    n = h * w
+    draws, picked = pool_draws(flow, intr, cfg, world, seed=4)
     estimate_from_flow(flow, intr, GAMMA, cfg, sample_indices=picked)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1612,41 +1706,93 @@ def phase_sharded(dev):
     ref_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     outs = spawn(sharded_rank, world, flow.cpu().numpy(), intr, draws,
-                 str(dev))
+                 str(flow.device), cfg)
     spawn_s = time.perf_counter() - t0
     for o in outs[1:]:
         for f in ("v", "w", "k", "num_inliers"):
             check(np.array_equal(o[f], outs[0][f]),
-                  f"sharded: {f} bit-identical on both ranks")
-    check([o["rows"] for o in outs] == [H // world] * world,
-          "sharded: each rank holds its block of rows")
+                  f"sharded {case}: {f} bit-identical on both ranks")
+    check([o["rows"] for o in outs] == [h // world] * world,
+          f"sharded {case}: each rank holds its block of rows")
+    check(all(o["mesh"] == {"pairs": 1, "pixels": world} for o in outs),
+          f"sharded {case}: global_mesh() {outs[0]['mesh']}")
     expect = {k: 0 for k in outs[0]["launches"]}
-    multi = estimation_launches(cfg)["lm_iter_multi"]
-    expect.update(score_hypotheses=1, lm_sums_multi=multi, lm_decide=multi)
+    # estimate_sharded runs estimate_from_flow: no feedback passes.
+    est = estimation_launches(dataclasses.replace(cfg, feedback_passes=0))
+    expect["score_hypotheses"] = est["score_hypotheses"]
+    expect.update(lm_sums_multi=est["lm_iter_multi"] + est["lm_iter"],
+                  lm_decide=est["lm_iter_multi"] + est["lm_iter"])
     for o in outs:
         check(o["launches"] == expect,
-              f"sharded launches {o['launches']} == {expect}")
+              f"sharded {case}: launches {o['launches']} == {expect}")
     got = outs[0]
     rank_ms = ", ".join(f"{o['ms']:.2f}" for o in outs)
     vs, vr = unit(got["v"]), unit(ref.v.cpu().numpy())
     dv = float(np.max(np.abs(vs * np.sign(vs @ vr) - vr)))
     dw = float(np.max(np.abs(got["w"] - ref.w.cpu().numpy())))
-    dn = abs(got["num_inliers"] - int(ref.num_inliers))
-    print(f"[7 sharded] estimation {W}x{H} over {world} ranks sharing one "
-          f"card (gloo): v={got['v']} w={got['w']} inliers="
-          f"{got['num_inliers']}/{n}, bit-identical on both ranks; vs the "
-          f"unsharded pass on the same hypotheses: v diff {dv:.3e}, w diff "
-          f"{dw:.3e}, inliers {int(ref.num_inliers)} (gates "
-          f"{SHARDED_GATES}); B7 launches per rank {multi} sums + {multi} "
-          f"decide; pass ms per rank {rank_ms} (two ranks on one card) vs "
-          f"unsharded {ref_ms:.2f}; spawn + both ranks {spawn_s:.1f} s",
-          flush=True)
-    check(dv <= SHARDED_GATES["v_direction"] and dw <= SHARDED_GATES["w"],
-          f"sharded: v diff {dv}, w diff {dw} within gates")
-    check(dn <= SHARDED_GATES["inlier_share"] * n,
-          f"sharded: inliers differ by {dn}")
-    check(got["num_inliers"] > 0.9 * n, "sharded: inliers > 0.9 N")
+    dk = abs(float(got["k"]) - float(ref.k))
+    mask = np.concatenate([o["inlier_mask"] for o in outs])
+    share = float(np.mean(mask != ref.inlier_mask.cpu().numpy()))
+    line = (f"[7 sharded] {case} {w}x{h} over {world} ranks sharing one "
+            f"card (gloo): v={got['v']} w={got['w']} k={float(got['k']):.6g}"
+            f" inliers={got['num_inliers']}/{n}, bit-identical on both "
+            f"ranks; vs the unsharded pass on the same draws: v diff "
+            f"{dv:.3e}, w diff {dw:.3e}, k diff {dk:.3e}, inlier masks "
+            f"differ on {share:.3e} of pixels, inliers "
+            f"{int(ref.num_inliers)} (gates {gates}); launches per rank "
+            f"B1 {expect['score_hypotheses']}, B7 {expect['lm_sums_multi']} "
+            f"sums + {expect['lm_decide']} decide; pass ms per rank "
+            f"{rank_ms} (two ranks on one card) vs unsharded {ref_ms:.2f}; "
+            f"spawn + both ranks {spawn_s:.1f} s")
+    if truth_gates:
+        errs = accel_errors(ref._replace(
+            v=torch.from_numpy(got["v"]), w=torch.from_numpy(got["w"]),
+            k=torch.tensor(float(got["k"])),
+            num_inliers=torch.tensor(got["num_inliers"])))
+        line += f"; against the truth {show(errs)} (gates {truth_gates})"
+    print(line, flush=True)
+    check(dv <= gates["v_direction"] and dw <= gates["w"],
+          f"sharded {case}: v diff {dv}, w diff {dw} within gates")
+    check(dk <= gates.get("k", 0.0), f"sharded {case}: k diff {dk}")
+    check(share <= gates["inlier_share"],
+          f"sharded {case}: inlier masks differ on {share}")
+    check(got["num_inliers"] > 0.9 * n, f"sharded {case}: inliers > 0.9 N")
+    if truth_gates:
+        for key, gate in truth_gates.items():
+            check(errs[key] < gate, f"sharded {case}: {key} {errs[key]} < "
+                  f"{gate}")
     return got["launches"]
+
+
+def phase_sharded(dev):
+    """The estimation sharded over 2 ranks on the one card: (a)
+    ESTIMATION_CONFIG on the full-HD flow, then on the castle's true flow
+    with k 0.8 (phase 11's inputs), (b) E2E_CONFIG and (c) the castle
+    gate's EST_CFG ("xla"), both with the acceleration model and the
+    prescore.  Returns (rank 0's launch counts of (a), the castle truth
+    with k 0.8)."""
+    import dataclasses
+
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, ESTIMATION_CONFIG
+    from rs_sfm_tpu_torch.config import PipelineConfig
+    from rs_sfm_tpu_torch.eval.gate import castle_truth
+
+    flow, intr = slice_inputs(dev)
+    launches = sharded_run("(a) ESTIMATION_CONFIG", flow, intr,
+                           ESTIMATION_CONFIG, SHARDED_GATES)
+    truth = castle_truth(H, W, dev, k=ACCEL_K)
+    extra = dict(use_acceleration=True, **ACCEL_PRESCORE)
+    for case, cfg in (
+            ("(b) E2E_CONFIG + acceleration + prescore",
+             dataclasses.replace(E2E_CONFIG, **extra)),
+            ("(c) EST_CFG (xla) + acceleration + prescore",
+             PipelineConfig(**FULLHD_EST_CFG, **extra))):
+        torch.cuda.synchronize()
+        sharded_run(case, truth.gt_flow, truth.intr, cfg,
+                    SHARDED_ACCEL_GATES, ACCEL_GATES)
+    return launches, truth
 
 
 def packed_keys(depth):
@@ -2149,16 +2295,68 @@ def accel_cpu_check(npz="build/accel_gate_jax.npz"):
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_accel(dev):
+def sharded_cpu_check(npz="build/sharded_gate_jax.npz"):
+    """The port's sharded estimation over 2 gloo ranks on the CPU with the
+    configuration of tests/test_parallel.py::test_sharded_full_features,
+    on the flow that scripts/sharded_gate_jax.py saved, beside the JAX
+    package's sharded (8 shards) and unsharded estimates from that script.
+    The pools and draws differ (torch's against jax.random's), so v is
+    compared as a direction and w as that test compares the JAX sharded
+    and unsharded runs.  Run from the repository root:
+        python3 -c "import runpy; runpy.run_path('chip_smoke.py')
+                    ['sharded_cpu_check']()"
+    """
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from rs_sfm_tpu_torch.config import PipelineConfig
+    from rs_sfm_tpu_torch.data.synthetic import default_intrinsics
+    from rs_sfm_tpu_torch.parallel.launch import spawn
+
+    saved = np.load(npz)
+    flow = torch.from_numpy(saved["flow"])
+    intr = default_intrinsics(*flow.shape[:2])
+    cfg = PipelineConfig(ransac_trials=64, ransac_tol=0.01,
+                         refine_iterations=20, refine_starts=2,
+                         use_acceleration=True, k_scan_points=9,
+                         ransac_prescore_subsample=256,
+                         ransac_prescore_keep=8, ransac_sample_pool=256)
+    draws, _ = pool_draws(flow, intr, cfg, 2, seed=3)
+    t0 = time.perf_counter()
+    got = spawn(sharded_rank, 2, saved["flow"], intr, draws, "cpu", cfg)[0]
+    seconds = time.perf_counter() - t0
+
+    def angle(a, b):
+        a, b = unit(np.asarray(a, np.float64)), unit(np.asarray(b,
+                                                               np.float64))
+        return float(np.arccos(np.clip(abs(a @ b), -1.0, 1.0)))
+
+    print(f"[sharded, CPU] port over 2 gloo ranks: v={got['v']} w={got['w']}"
+          f" k={float(got['k']):.6g} inliers={got['num_inliers']} "
+          f"({seconds:.1f} s)", flush=True)
+    for name in ("sharded", "unsharded"):
+        v, w = saved[f"{name}_v"], saved[f"{name}_w"]
+        print(f"[sharded, CPU] JAX {name}: v={v} w={w} k="
+              f"{float(saved[f'{name}_k']):.6g} inliers="
+              f"{int(saved[f'{name}_num_inliers'])}; port - JAX: v angle "
+              f"{angle(got['v'], v):.3e} (the JAX test's 2e-3), w diff "
+              f"{np.linalg.norm(got['w'] - w):.3e} (1e-4), k diff "
+              f"{abs(float(got['k']) - float(saved[f'{name}_k'])):.3e}",
+              flush=True)
+
+
+def phase_accel(dev, truth):
     """The acceleration model at full HD on the card (see the module
-    docstring); returns {kernel: its record at the acceleration model's
-    shapes} for B1, B2 and B3."""
+    docstring) on `truth`, the castle rendered with k 0.8 (phase 7);
+    returns {kernel: its record at the acceleration model's shapes} for
+    B1, B2 and B3."""
     import dataclasses
 
     import torch
 
     from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET
-    from rs_sfm_tpu_torch.eval.gate import castle_truth, production_gate
+    from rs_sfm_tpu_torch.eval.gate import production_gate
     from rs_sfm_tpu_torch.ops.kernels import score as sk
     from rs_sfm_tpu_torch.solver.kscan import k_scan
     from rs_sfm_tpu_torch.solver.minimal import calculate_velocities_all_k
@@ -2167,7 +2365,6 @@ def phase_accel(dev):
                                                 sample_valid_indices)
 
     t_phase = time.perf_counter()
-    truth = castle_truth(H, W, dev, k=ACCEL_K)
     intr, flow = truth.intr, truth.gt_flow
     cases = accel_configs()
     firsts = {}
@@ -2304,11 +2501,14 @@ def phase_accel(dev):
             "lm_iter_multi": lm[4]}
 
 
-def phase_cli(dev):
+def phase_cli(dev, castle, castle_photo):
     """The CLI in process on the card (cli.main) in build/cli_smoke:
-    generate, single-run on the GT flow and on the dense flow with the
-    occlusion mask and the feedback passes, generate-sweep, sweep and
-    test-flow, at 600x600; checks the files they write and the gates."""
+    generate, single-run on the GT flow (also with --acceleration and with
+    --flow-model auto) and on the dense flow with the occlusion mask and
+    the feedback passes, generate-sweep, sweep and test-flow, at 600x600;
+    checks the files they write and the gates.  Then the auto preset's
+    probe on phase 6b's full-HD clean and photometric castle pairs
+    (`castle`'s frames, `castle_photo` its photometric frame 2)."""
     import contextlib
     import io
     import shutil
@@ -2385,6 +2585,13 @@ def phase_cli(dev):
     for key, gate in CLI_GT_GATES.items():
         check(accel_errs[key] < gate, f"cli single-run --acceleration (GT "
               f"flow): {key} {accel_errs[key]} < {gate}")
+    auto = work / "auto"
+    text = run("single-run", "--data", ds, "--out", auto, "--flow-model",
+               "auto")
+    auto_lines = [line for line in text.splitlines()
+                  if line.startswith("flow model auto -> ")]
+    check(auto_lines == ["flow model auto -> variational"],
+          f"cli single-run --flow-model auto: {auto_lines}")
     deep = work / "deep"
     text = run("single-run", "--data", ds, "--out", deep, "--deep-flow",
                "--occlusion-mask", "--model-feedback")
@@ -2441,10 +2648,33 @@ def phase_cli(dev):
           + f" (err_v gate {CLI_DEEP_ERR_V}); sweep "
           + "; ".join(" ".join(f"{k}={v:.4g}" for k, v in r.items())
                       for r in sweep_errs)
-          + f"; test-flow {verdicts}; launches {counts}; png.read of a "
+          + f"; test-flow {verdicts}; --flow-model auto: {auto_lines[0]};"
+          f" launches {counts}; png.read of a "
           f"{W}x{H} RGB frame (host s): "
           + " ".join(f"{k}={v:.3f}" for k, v in read_s.items()), flush=True)
     shutil.rmtree(work, ignore_errors=True)
+
+    # The auto preset's probe (flow/auto.py: 1/8 scale, B4-B6) on the
+    # full-HD castle pairs of phase 6b: tests/test_fullhd_flow.py's gate
+    # wants variational on the clean pair and robust on the photometric one.
+    from rs_sfm_tpu_torch.flow.auto import probe_flow_preset
+
+    for case, i2, want in (("clean", castle.i2, "variational"),
+                           ("photometric", castle_photo, "robust")):
+        wrap = reset_counts()
+        name, stats = probe_flow_preset(castle.i1, i2, return_stats=True)
+        counts = {k: wrap[k].launches for k in ("warp", "match_search",
+                                                "sor_sweeps",
+                                                "median3_planes")}
+        ms = wall_ms(lambda: probe_flow_preset(castle.i1, i2), runs=5)
+        print(f"[10 cli] auto probe, {case} castle {W}x{H} (probed at "
+              f"1/8 scale): {name} (want {want}); "
+              + " ".join(f"{k}={v:.5f}" for k, v in stats.items())
+              + f"; {ms:.2f} ms host wall (median of 5); launches {counts}",
+              flush=True)
+        check(name == want, f"auto probe {case}: {name} == {want}")
+        check(all(c > 0 for c in counts.values()),
+              f"auto probe {case}: B4-B6 launched {counts}")
 
 
 def main():
@@ -2475,14 +2705,15 @@ def main():
     phase_slice(dev)
     phase_parity(dev)
     launches, pass_ms, e2e = phase_e2e(dev)
-    castle = phase_castle(dev)
-    launches["lm_sums_multi"] = phase_sharded(dev)["lm_sums_multi"]
+    castle, castle_photo = phase_castle(dev)
+    sharded, accel_truth = phase_sharded(dev)
+    launches["lm_sums_multi"] = sharded["lm_sums_multi"]
     rect_launches, records["zbuffer_splat"] = phase_rectify(dev, e2e,
                                                               castle, save_b8)
     launches["zbuffer_splat"] = rect_launches["zbuffer_splat"]
     phase_stress(dev, args.stress_evals)
-    phase_cli(dev)
-    for kname, rec in phase_accel(dev).items():
+    phase_cli(dev, castle, castle_photo)
+    for kname, rec in phase_accel(dev, accel_truth).items():
         # The acceleration model's shapes beside the main path's.
         records[kname].update({f"{key}_accel": rec[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms")})

@@ -54,9 +54,6 @@ def _add_common(p):
 
 def _check_options(args):
     """NotImplementedError for the estimation flags the port lacks."""
-    if args.flow_model == "auto":
-        raise NotImplementedError("--flow-model auto: the per-pair preset "
-                                  "probe is not ported (ROADMAP A5)")
     if (args.census_weight or 0.0) > 0.0:
         raise NotImplementedError("--census-weight > 0: the census data term "
                                   "is not ported (ROADMAP A10)")
@@ -73,11 +70,20 @@ def _est_config(args):
         refine_starts=args.refine_starts)
 
 
-def _flow_config(args):
-    from rs_sfm_tpu_torch.models import get_flow_preset
+def _flow_config(args, pair=None, device=None):
+    """The flow preset of --flow-model; "auto" probes `pair`'s frames on
+    `device` and prints the preset it resolved to."""
+    from rs_sfm_tpu_torch.eval.harness import unit_image
+    from rs_sfm_tpu_torch.models import resolve_flow_preset
 
-    cfg = get_flow_preset(args.flow_model, warp_engine=args.warp_engine,
-                          sor_engine=args.sor_engine)
+    auto = args.flow_model == "auto"
+    cfg, resolved = resolve_flow_preset(
+        args.flow_model,
+        unit_image(pair.frame1.rs_image, device) if auto else None,
+        unit_image(pair.frame2.rs_image, device) if auto else None,
+        warp_engine=args.warp_engine, sor_engine=args.sor_engine)
+    if auto:
+        print(f"flow model auto -> {resolved}")
     if args.census_weight is not None:
         cfg = cfg._replace(census_weight=args.census_weight)
     return cfg
@@ -160,7 +166,7 @@ def cmd_single_run(args):
         use_flow = args.deep_flow
     cfg = _est_config(args)
     gamma = args.gamma if args.gamma is not None else (pair.gamma or 0.9)
-    flow_cfg = _flow_config(args)
+    flow_cfg = _flow_config(args, pair, device)
     pixel_mask = None
     if use_flow and args.occlusion_mask:
         from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
@@ -271,13 +277,13 @@ def cmd_sweep(args):
     errors_f = open(os.path.join(results_dir, "errors.csv"), mode)
     if not args.resume:
         errors_f.write("task,error_w,error_v,reproject_error\n")
-    flow_cfg = _flow_config(args)
     for i, task in enumerate(tasks):
         if task in done:
             print(f"\nSkipping {task} (already done)")
             continue
         print(f"\nExecuting task {task}...")
         pair = load_synthetic_pair(os.path.join(path, task))
+        flow_cfg = _flow_config(args, pair, device)
         errs = evaluate_velocities(
             pair, cfg, num_evaluations=args.num_evaluations,
             use_deep_flow=args.deep_flow, seed=args.seed + i,
@@ -374,8 +380,9 @@ def main(argv=None):
         p.add_argument("--deep-flow", action="store_true")
         p.add_argument("--flow-model", default="variational",
                        help="dense-flow preset from rs_sfm_tpu_torch.models "
-                            "(variational / fast / robust; auto is not "
-                            "ported, ROADMAP A5)")
+                            "(variational / fast / robust / auto: a coarse "
+                            "probe of each pair picks variational or "
+                            "robust)")
         p.add_argument("--warp-engine", choices=("xla", "pallas"),
                        default="xla",
                        help="accepted; both run the warp kernel")

@@ -9,7 +9,8 @@ names and values:
   census       census data term (its data term is not ported: the preset
                is listed, and dense flow raises NotImplementedError on it)
 
-"auto" (the per-pair probe of rs_sfm_tpu/flow/auto.py) is not ported.
+and "auto", the per-pair probe (flow/auto.py), which needs the frame pair:
+`resolve_flow_preset`.
 """
 
 from __future__ import annotations
@@ -28,12 +29,32 @@ FLOW_PRESETS: Dict[str, DenseFlowConfig] = {
 
 def get_flow_preset(name: str, **overrides) -> DenseFlowConfig:
     """Look up a flow preset by name, optionally overriding fields
-    (e.g. ``get_flow_preset("variational", warp_engine="pallas")``)."""
-    if name == "auto":
-        raise NotImplementedError("the 'auto' flow preset is not ported")
+    (e.g. ``get_flow_preset("variational", warp_engine="pallas")``).
+
+    "auto" needs the frame pair: use resolve_flow_preset."""
     try:
         preset = FLOW_PRESETS[name]
     except KeyError:
+        hint = ("; 'auto' needs the frame pair: use resolve_flow_preset"
+                if name == "auto" else "")
         raise KeyError(f"unknown flow model {name!r}; known: "
-                       f"{sorted(FLOW_PRESETS)}") from None
+                       f"{sorted(FLOW_PRESETS) + ['auto']}{hint}") from None
     return preset._replace(**overrides) if overrides else preset
+
+
+def resolve_flow_preset(name: str, image1=None, image2=None, **overrides):
+    """Resolve a preset name, "auto" included, to a DenseFlowConfig.
+
+    "auto" runs the coarse-scale probe (flow/auto.py::probe_flow_preset) on
+    the pair (on the images' device; arrays go to the card) and picks
+    "variational" or "robust".
+
+    Returns (config, resolved name).
+    """
+    if name == "auto":
+        if image1 is None or image2 is None:
+            raise ValueError("flow preset 'auto' needs the frame pair")
+        from rs_sfm_tpu_torch.flow.auto import probe_flow_preset
+
+        name = probe_flow_preset(image1, image2)
+    return get_flow_preset(name, **overrides), name

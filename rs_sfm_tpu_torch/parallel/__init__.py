@@ -6,7 +6,7 @@ rs_sfm_tpu/parallel/).
   * pixels -- the scanline blocks of one pair split over the `pixels` axis
               (`estimate_sharded`): RANSAC draws from a pool shared by
               all-reduce and sums its votes in one all-reduce per stage,
-              and each LM iteration all-reduces its (J, 71) sums once.
+              and the k-scan and each LM iteration all-reduce their sums.
 
 Ranks are processes (`launch.spawn` on one host).  The entry points are
 loaded on first use, because the solver imports `distributed` from here.
@@ -24,7 +24,11 @@ def __getattr__(name):
         from rs_sfm_tpu_torch.parallel import mesh
 
         return getattr(mesh, name)
+    if name in ("initialize", "global_mesh"):
+        from rs_sfm_tpu_torch.parallel import distributed
+
+        return getattr(distributed, name)
     raise AttributeError(name)
 
 
-__all__ = ["Mesh", "make_mesh", *_API]
+__all__ = ["Mesh", "make_mesh", "initialize", "global_mesh", *_API]

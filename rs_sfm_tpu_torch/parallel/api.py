@@ -4,8 +4,11 @@
       of a process group.  Every rank holds the whole flow field and runs
       solver.pipeline.estimate_from_flow on its block of rows with the
       group: RANSAC draws from a pool shared by all ranks and sums its votes
-      in one all-reduce per stage, each LM iteration all-reduces its (J, 71)
-      sums once, and the re-votes and the sign flip sum over the group.
+      in one all-reduce per stage (the prescore's too), the k-scan
+      all-reduces each fit's Gram and each cost, each LM iteration
+      all-reduces its sums once (the fused engine's (J, 71) sums, the
+      "xla" engine's two Gram products) and its cost, and the re-votes and
+      the sign flip sum over the group.  Every PipelineConfig option runs.
       Scalar outputs are the same on every rank; per-pixel outputs are the
       rank's rows.
 
@@ -28,7 +31,6 @@ from rs_sfm_tpu_torch.geom.camera import Intrinsics
 from rs_sfm_tpu_torch.parallel.distributed import axis_index, axis_size, psum
 from rs_sfm_tpu_torch.parallel.mesh import Mesh
 from rs_sfm_tpu_torch.solver.pipeline import (EstimationResult,
-                                              check_sharded_supported,
                                               estimate_from_flow)
 
 _PER_PIXEL = ("depth_map", "inlier_mask", "valid_mask")
@@ -72,10 +74,8 @@ def estimate_sharded(group_or_mesh, intr: Intrinsics, gamma,
     flow, which is invalid under cfg.flow_threshold and so adds to no sum,
     and the per-pixel outputs are cropped to the rank's real rows.  The
     draws of `generator` on the group's first rank are used by all;
-    `sample_indices` index the shared pool.  The acceleration model and
-    the prescore raise NotImplementedError (ROADMAP A8).
+    `sample_indices` index the shared pool.
     """
-    check_sharded_supported(cfg)
     group = (group_or_mesh.pixels_group if isinstance(group_or_mesh, Mesh)
              else group_or_mesh)
     if group is None:

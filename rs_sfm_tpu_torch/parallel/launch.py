@@ -5,14 +5,16 @@
 starts `world_size` processes with the "spawn" start method (a process
 that has initialised CUDA cannot be forked), joins them in one gloo or NCCL
 process group over a free localhost port, calls fn(rank, world_size, *args)
-in each, and returns the values in rank order.  `fn` and `args` are pickled,
-so `fn` must be a module-level function; return CPU tensors or numpy
-arrays.  A rank that raises makes `spawn` raise with its traceback; every
+in each (its environment carries LOCAL_RANK and LOCAL_WORLD_SIZE, as
+torchrun's ranks do), and returns the values in rank order.  `fn` and
+`args` are pickled, so `fn` must be a module-level function; return CPU
+tensors or numpy arrays.  A rank that raises makes `spawn` raise with its traceback; every
 process is joined (or killed at the timeout) before `spawn` returns.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import socket
 import time
@@ -33,6 +35,9 @@ def _free_port() -> int:
 def _worker(rank, world_size, port, backend, fn, args, results):
     # One host thread per rank: the ranks share the host's cores.
     torch.set_num_threads(1)
+    # The rank's place on the host, as torchrun gives it (global_mesh).
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world_size)
     try:
         distributed.initialize(f"tcp://127.0.0.1:{port}", world_size, rank,
                                backend=backend)

@@ -17,16 +17,15 @@ each rank runs this function on its block of rows: RANSAC shares its
 sample pool and votes, the refinement all-reduces its sums, and the
 re-votes, inlier counts and sign flip sum over the group, so every scalar
 output is the same on all ranks and the per-pixel outputs are the rank's
-rows.  The sharded form runs the fused engine only.
+rows.  Every option runs sharded: both refinement engines, the prescore
+and the acceleration model with its k-scan.
 
 With the acceleration model (cfg.use_acceleration) RANSAC solves for k
 too, a k grid scan (solver/kscan.py) seeds each refinement start, and the
 LM frees k.
 
-Not ported yet: the second winnow stage, the sharded "xla" refinement,
-the sharded acceleration model and prescore (ROADMAP A8), and of the
-feedback options the basin re-vote, the decimated inpainting and the
-"full" re-estimation mode.
+Not ported yet: the second winnow stage, and of the feedback options the
+basin re-vote and the decimated inpainting (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -111,22 +110,8 @@ def _check_supported(cfg: PipelineConfig) -> None:
         if cfg.feedback_fast_inpaint:
             raise NotImplementedError("the decimated feedback inpainting is "
                                       "not ported")
-        if cfg.feedback_mode != "refine":
-            raise NotImplementedError(
-                f"feedback_mode {cfg.feedback_mode!r} is not ported (only "
-                f"'refine')")
-
-
-def check_sharded_supported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for the options the sharded estimation
-    leaves out, rather than run without them."""
-    if cfg.use_acceleration and not cfg.use_global_shutter:
-        raise NotImplementedError(
-            "the sharded estimation has no acceleration model: its sharded "
-            "k-scan is ROADMAP A8")
-    if cfg.ransac_prescore_subsample:
-        raise NotImplementedError(
-            "the sharded estimation has no RANSAC prescore (ROADMAP A8)")
+        if cfg.feedback_mode not in ("refine", "full"):
+            raise ValueError(f"unknown feedback_mode {cfg.feedback_mode!r}")
 
 
 def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
@@ -164,13 +149,6 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     """
     _check_supported(cfg)
     xla = cfg.refine_engine != "pallas"
-    if group is not None:
-        check_sharded_supported(cfg)
-        if cfg.use_refinement and xla:
-            raise NotImplementedError(
-                "the sharded refinement runs the fused engine only "
-                "(refine_engine='pallas'); the sharded 'xla' one is "
-                "ROADMAP A8")
     mark = timer if timer is not None else (lambda _name: None)
     h, w_cols = flow_px.shape[:2]
     use_k = cfg.use_acceleration and not cfg.use_global_shutter
@@ -225,7 +203,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                                 cfg.k_scan_points, dtype=coords.dtype,
                                 device=coords.device)
         vs, ws, ks, rhos, _ = k_scan(coords, flow_n, alpha, alpha_k, masks,
-                                     vs, ws, k_grid, iters=cfg.k_scan_iters)
+                                     vs, ws, k_grid, iters=cfg.k_scan_iters,
+                                     group=group)
         mark("kscan")
         return vs, ws, ks, rhos
 
@@ -235,7 +214,7 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
                       rel_tol=cfg.refine_rel_tol, loss_delta=loss_delta)
         if xla:
             return refine_xla(coords, flow_n, alpha, alpha_k, masks, vs, ws,
-                              ks, rhos, **kwargs)
+                              ks, rhos, group=group, **kwargs)
         if group is not None:
             return refine_pallas_multi_sharded(
                 coords, flow_n, alpha, alpha_k, masks, vs, ws, ks, rhos,
@@ -352,6 +331,19 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         top_k=torch.cat([k[None], cand_k]))
 
 
+def pass_generator(generator: Optional[torch.Generator], p: int):
+    """The generator of feedback pass p (0-based) under
+    feedback_mode="full": a new generator on `generator`'s device seeded
+    with generator.initial_seed() * 1,000,003 + 101 + p (mod 2^63), the
+    port's counterpart of the JAX package's fold_in(key, 101 + p).  It
+    depends on the caller's seed only, not on how far that generator has
+    been drawn.  None (the global generator) stays None."""
+    if generator is None:
+        return None
+    seed = (generator.initial_seed() * 1_000_003 + 101 + p) % (1 << 63)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 def estimate_with_feedback(flow_px, intr: Intrinsics, gamma,
                            cfg: PipelineConfig,
                            generator: Optional[torch.Generator] = None, *,
@@ -365,10 +357,23 @@ def estimate_with_feedback(flow_px, intr: Intrinsics, gamma,
     `generator` / `sample_indices`).  Each feedback pass then extends the
     untrusted set with the tight-consensus, RANSAC and depth-coherence
     outliers of the current model (flow/feedback.py::model_feedback) and
-    re-estimates on the surviving pixels, warm-started from the current
-    model: one single-start refinement of cfg.feedback_refine_iterations
-    iterations (cfg.refine_iterations if 0), no second RANSAC.  The flow's
-    prepared inputs are computed once for all passes.
+    re-estimates on the surviving pixels, per cfg.feedback_mode:
+
+      "refine"  warm-started from the current model: one single-start
+                refinement of cfg.feedback_refine_iterations iterations
+                (cfg.refine_iterations if 0), no second RANSAC;
+      "full"    the complete schedule with no warm start (RANSAC, the
+                multi-start refinement with its winnow, the k-scan under
+                the acceleration model) and cfg.refine_iterations; pass p
+                draws from `pass_generator(generator, p)`.
+
+    `sample_indices` may also be a callable f(p, valid) -> (trials, 9)
+    draws for pass p (0 = the first estimation, 1.. the feedback passes)
+    from `valid`, the (H*W,) bool pixels that pass's RANSAC draws from (the
+    flow's validity and the pass's trusted mask): the tests hand each pass
+    the JAX package's draws on that mask.  A fixed array of draws serves
+    the first estimation only, so "full" then needs a generator or a
+    callable.  The flow's prepared inputs are computed once for all passes.
 
     `timer`, if given, is called with "estimate" after pass 1 and
     "feedback" after the last pass.
@@ -377,28 +382,49 @@ def estimate_with_feedback(flow_px, intr: Intrinsics, gamma,
     from rs_sfm_tpu_torch.flow.feedback import model_feedback
 
     mark = timer if timer is not None else (lambda _name: None)
+    full = cfg.feedback_mode == "full"
     prepared = prepare_flow_inputs(flow_px, intr, gamma, cfg)
+
+    def draws(p, mask):
+        if not callable(sample_indices):
+            return sample_indices if p == 0 else None
+        valid = prepared[4]
+        if mask is not None:
+            valid = valid & mask.reshape(-1)
+        return sample_indices(p, valid)
+
+    if (full and cfg.feedback_passes > 0 and generator is None
+            and sample_indices is not None and not callable(sample_indices)):
+        raise ValueError(
+            "feedback_mode='full' draws anew in every pass: give a "
+            "generator or a callable sample_indices, not fixed draws")
     res = estimate_from_flow(flow_px, intr, gamma, cfg, generator,
-                             sample_indices=sample_indices,
+                             sample_indices=draws(0, pixel_mask),
                              pixel_mask=pixel_mask, prepared=prepared)
     mark("estimate")
     if cfg.feedback_passes <= 0:
         return res
     h, w_cols = flow_px.shape[:2]
     cfg_p = cfg
-    if cfg.feedback_refine_iterations > 0:
+    if not full and cfg.feedback_refine_iterations > 0:
         cfg_p = dataclasses.replace(
             cfg, refine_iterations=cfg.feedback_refine_iterations)
-    for _ in range(cfg.feedback_passes):
+    for p in range(cfg.feedback_passes):
         occ0 = (~pixel_mask if pixel_mask is not None else torch.zeros(
             (h, w_cols), dtype=torch.bool, device=flow_px.device))
         fbk = model_feedback(flow_px, occ0, res, intr, gamma, cfg,
                              residual_tol_px=cfg.feedback_residual_tol_px,
                              prepared=prepared)
         pixel_mask = ~fbk.occlusion
-        res = estimate_from_flow(flow_px, intr, gamma, cfg_p,
-                                 pixel_mask=pixel_mask,
-                                 warm_start=(res.v, res.w, res.k),
-                                 prepared=prepared)
+        if full:
+            res = estimate_from_flow(flow_px, intr, gamma, cfg,
+                                     pass_generator(generator, p),
+                                     sample_indices=draws(p + 1, pixel_mask),
+                                     pixel_mask=pixel_mask, prepared=prepared)
+        else:
+            res = estimate_from_flow(flow_px, intr, gamma, cfg_p,
+                                     pixel_mask=pixel_mask,
+                                     warm_start=(res.v, res.w, res.k),
+                                     prepared=prepared)
     mark("feedback")
     return res

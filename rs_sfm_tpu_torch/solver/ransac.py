@@ -21,10 +21,13 @@ hypothesis on a stratified pixel subsample and scores only the best
 `prescore_keep` on all pixels.
 
 Under scanline-block sharding (`group`), hypotheses are drawn from a pool
-of pixels shared by all ranks (`shared_sample_pool`), each rank scores them
-on its own pixels, and the (T, 2) vote table is summed over the group in
-one all-reduce.  The sharded prescore and acceleration model are ROADMAP
-A8 (the pipeline raises for them).
+of pixels shared by all ranks (`shared_sample_pool`; with the acceleration
+model the pool carries α̃ and every rank expands the same samples into the
+same all-k hypotheses), each rank scores them on its own pixels, and the
+(T, 2) vote table is summed over the group in one all-reduce.  The
+prescore does the same on each rank's stratified subsample of its block:
+one all-reduce of its (T, 2) table ranks the hypotheses on the union of
+the subsamples.
 """
 
 from __future__ import annotations
@@ -168,6 +171,26 @@ def _score_votes(coords, flow, alpha, alpha_k, valid_mask, v, w, k, tol,
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
+def prescore_votes(coords, flow, alpha, alpha_k, valid_mask, v, w, k, tol,
+                   subsample: int, chunk: int = 64, group=None):
+    """The prescore's vote table: (counts (T,) int32, error sums (T,),
+    pixels voted) of hypotheses v, w (T, 3), k (T,) on `subsample` pixels
+    at a fixed stride of this block (the kernel on CUDA tensors, else the
+    plain scoring).  Under `group` the table is summed over the ranks in
+    ONE all-reduce: the votes of the union of their subsamples."""
+    n = coords.shape[0]
+    stride = max(n // subsample, 1)
+    sub = (torch.arange(subsample, device=coords.device) * stride) % n
+    pn, pe = _score_votes(coords[sub], flow[sub], alpha[sub], alpha_k[sub],
+                          valid_mask[sub], v, w, k, tol, chunk,
+                          coords.is_cuda)
+    if group is None:
+        return pn, pe, subsample
+    votes = psum(torch.stack([pn.to(pe.dtype), pe], dim=-1), group)
+    return (votes[:, 0].to(torch.int32), votes[:, 1],
+            subsample * axis_size(group))
+
+
 def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
            trials: int, tolerance: float, generator=None,
            sample_indices=None, chunk: int = 64, k_mode: str = "score",
@@ -197,6 +220,8 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
         fixed stride (the kernel on CUDA tensors, else the plain scoring,
         under either engine) and scores the best `prescore_keep` on all
         pixels; ranking is by count, then error sum, ties to the earliest.
+        Under `group` each rank takes this many pixels of its block and
+        the votes are summed over the group.
       compat_negate_k: the reference's sign of k (k_mode "min").
       top_j, top_j_diversity: multi-start outputs (RansacResult.top_*).
       group: process group when the pixels are this rank's scanline block
@@ -257,14 +282,11 @@ def ransac(coords, flow, alpha, alpha_k, valid_mask, *, use_k: bool,
     if prescore_subsample and prescore_subsample < n:
         # Stage 1: rank on a stratified subsample (the same pixels for all
         # hypotheses), keep the best prescore_keep.
-        stride = max(n // prescore_subsample, 1)
-        sub = (torch.arange(prescore_subsample, device=coords.device)
-               * stride) % n
-        pn, pe = _score_votes(coords[sub], flow[sub], alpha[sub],
-                              alpha_k[sub], valid_mask[sub], v_all, w_all,
-                              k_all, tolerance, chunk, coords.is_cuda)
+        pn, pe, sub_total = prescore_votes(
+            coords, flow, alpha, alpha_k, valid_mask, v_all, w_all, k_all,
+            tolerance, prescore_subsample, chunk, group)
         pn = torch.where(valid_h, pn, -1)
-        big_s = prescore_subsample * tolerance + 1.0
+        big_s = sub_total * tolerance + 1.0
         pre_score = pn.to(pe.dtype) * big_s - torch.where(
             torch.isfinite(pe), pe, big_s)
         top = torch.argsort(pre_score, descending=True,

@@ -15,8 +15,13 @@ after each step ρ is re-eliminated in closed form (variable projection).
 Plain tensor ops in the flow's dtype, on the flow's device: no kernel lies
 behind this engine (the fused engine is `refine_fused`).  J starts run
 batched along a leading axis (the JAX package vmaps `refine`); each start
-keeps its own damping, accept decisions and stopping flag.  The
-pixel-sharded form (`axis_name`) is not ported.
+keeps its own damping, accept decisions and stopping flag.
+
+Under scanline-block sharding (`group`) each rank holds its block of
+pixels: the cost and, per iteration, the two Gram products of the Schur
+system (the augmented [Jθ | r] Gram and the ρ-elimination's Y Gram, packed
+into one buffer) are summed over the group, one all-reduce each, so every
+rank takes the same step and stops at the same iteration.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from rs_sfm_tpu_torch.ops import linalg
+from rs_sfm_tpu_torch.parallel.distributed import psum
 from rs_sfm_tpu_torch.solver.beta import beta_factor, beta_factor_dk
 from rs_sfm_tpu_torch.solver.depth import estimate_inverse_depth_info
 from rs_sfm_tpu_torch.solver.flow_model import (rotational_flow,
@@ -85,7 +91,8 @@ def _gram(x):
 
 def refine(coords, flow, alpha, alpha_k, mask, v0, w0, k0, rho0, *,
            optimize_k: bool, iterations: int = 50, init_lambda: float = 1e-6,
-           rel_tol: float = 1e-8, loss_delta: float = 0.0) -> RefineResult:
+           rel_tol: float = 1e-8, loss_delta: float = 0.0,
+           group=None) -> RefineResult:
     """Schur-reduced LM refinement (reference nonLinearRefinement,
     src/nonlinearRefinement.cc:183-252).
 
@@ -104,6 +111,9 @@ def refine(coords, flow, alpha, alpha_k, mask, v0, w0, k0, rho0, *,
         host sync, > 0 reads the stopping flags once per iteration.
       loss_delta: > 0 switches to the Huber loss on the per-pixel residual
         norm (lagged IRLS weights min(1, δ/‖r‖)); 0 is the reference's L2.
+      group: process group when the pixels are this rank's scanline block
+        (None = the whole image); ρ stays local, every other output is the
+        same on all ranks.
 
     Returns a RefineResult, with a leading J axis on every field when the
     starts were given batched.  Depths outside the mask pass through.
@@ -142,7 +152,8 @@ def refine(coords, flow, alpha, alpha_k, mask, v0, w0, k0, rho0, *,
         e = (translational_flow(coords, v[:, None]) * rho[..., None]
              + rotational_flow(coords, w[:, None]))
         r = flow - beta[..., None] * e
-        return torch.sum(m * rho_loss(torch.sum(r * r, dim=-1)), dim=-1)
+        return psum(torch.sum(m * rho_loss(torch.sum(r * r, dim=-1)),
+                              dim=-1), group)
 
     def step(v, w, k, rho, lam, cost):
         r, j_theta, j_rho = _residual_and_jac(
@@ -158,19 +169,10 @@ def refine(coords, flow, alpha, alpha_k, mask, v0, w0, k0, rho0, *,
         mw = torch.sqrt(m_eff)[..., None]
         x_aug = torch.cat([j_theta * mw[..., None], (r * mw)[..., None]],
                           dim=-1).reshape(n_starts, -1, 8)
-        gram = _gram(x_aug)
-        h_tt = gram[:, :7, :7]
-        g_t = gram[:, :7, 7]
         c_i = torch.sum(j_theta * (j_rho * m_eff[..., None])[..., None],
                         dim=-2)                              # (J, N, 7)
         d_i = torch.sum(j_rho * j_rho, dim=-1) * m_eff       # (J, N)
         g_rho = torch.sum(j_rho * r, dim=-1) * m_eff         # (J, N)
-
-        # Multiplicative (Marquardt) damping on the diagonals.
-        diag = torch.diagonal(h_tt, dim1=-2, dim2=-1)
-        h_aug = h_tt + torch.diag_embed(lam[:, None] * (diag + 1e-12))
-        # Keep the frozen-k row/column invertible.
-        h_aug[:, 6, 6] += 1.0 - k_keep
         d_aug = d_i * (1.0 + lam[:, None])
         informative = d_aug > 0.0
         d_safe = torch.where(informative, d_aug, torch.ones_like(d_aug))
@@ -180,7 +182,18 @@ def refine(coords, flow, alpha, alpha_k, mask, v0, w0, k0, rho0, *,
                                  torch.zeros_like(d_safe))
         y_aug = torch.cat([c_i * inv_sqrt_d[..., None],
                            (g_rho * inv_sqrt_d)[..., None]], dim=-1)
-        gram_y = _gram(y_aug)
+        # Both Gram products are pixel sums of local terms (λ is the same
+        # on every rank): ONE all-reduce of the two under `group`.
+        grams = psum(torch.stack([_gram(x_aug), _gram(y_aug)]), group)
+        gram, gram_y = grams[0], grams[1]
+        h_tt = gram[:, :7, :7]
+        g_t = gram[:, :7, 7]
+
+        # Multiplicative (Marquardt) damping on the diagonals.
+        diag = torch.diagonal(h_tt, dim1=-2, dim2=-1)
+        h_aug = h_tt + torch.diag_embed(lam[:, None] * (diag + 1e-12))
+        # Keep the frozen-k row/column invertible.
+        h_aug[:, 6, 6] += 1.0 - k_keep
         h_red = h_aug - gram_y[:, :7, :7]
         g_red = g_t - gram_y[:, :7, 7]
 

@@ -20,6 +20,8 @@ Tolerances:
   both on the float32 flow and the same draws: v direction 1e-3, w 1e-5,
   k 1e-3, inlier counts within 0.5 % (float32 sums in another order).
 - `projection_roundtrip_error` against JAX: 1e-9 relative.
+- the sharded estimation with the acceleration model or the prescore over
+  a group of one rank: bit-identical to the unsharded one.
 """
 
 import dataclasses
@@ -47,6 +49,8 @@ from rs_sfm_tpu_torch.flow.true_flow import true_flow
 from rs_sfm_tpu_torch.geom.diagnostics import projection_roundtrip_error
 from rs_sfm_tpu_torch.parallel.api import estimate_sharded
 from rs_sfm_tpu_torch.solver import pipeline as tpipeline
+
+import torch_parallel_ranks as ranks
 
 # The test workers share the CPU with the JAX tests: a few intra-op threads
 # each (the results do not depend on the count).
@@ -167,16 +171,21 @@ def test_projection_roundtrip_matches_jax():
 
 @pytest.mark.parametrize("change", [dict(use_acceleration=True),
                                     dict(ransac_prescore_subsample=64)])
-def test_sharded_estimation_raises_for_a8_options(change):
-    """The sharded k-scan and prescore are ROADMAP A8: both sharded entry
-    points refuse them rather than run without them."""
+def test_sharded_estimation_raises_for_a8_options(castle, change):
+    """The sharded k-scan and prescore (ROADMAP A8, which both sharded
+    entry points refused before they were ported) run: over a group of
+    one rank, `estimate_sharded` equals the unsharded estimation on the
+    same draws bit for bit (a pool of every pixel indexes the image).
+    tests/test_torch_parallel.py holds them on 2 ranks."""
     cfg = dataclasses.replace(CFG, feedback_passes=0,
                               refine_engine="pallas", **change)
-    intr = default_intrinsics(16, 32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        estimate_sharded(object(), intr, GAMMA, cfg)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tpipeline.estimate_from_flow(torch.zeros(16, 32, 2), intr, GAMMA,
-                                     cfg, torch.Generator().manual_seed(0),
-                                     group=object(), row_offset=0,
-                                     total_rows=16)
+    flow = torch.from_numpy(castle["flow"])
+    want = tpipeline.estimate_from_flow(flow, castle["intr"], GAMMA, cfg,
+                                        sample_indices=castle["draws"])
+    with ranks.solo_group() as group:
+        got = estimate_sharded(group, castle["intr"], GAMMA, cfg,
+                               pool_per_shard=SIZE * SIZE)(
+            flow, sample_indices=castle["draws"])
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert abs(float(got.k) - K_TRUE) < 0.2

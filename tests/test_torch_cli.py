@@ -2,11 +2,13 @@
 JAX): generate → single-run → generate-sweep → sweep (and --resume) →
 test-flow at 32x32 with --device cpu, held to tests/test_harness.py's
 gates (err_w < 1e-3, err_v < 0.02, reprojection < 0.2), single-run with
---acceleration too (and |k| < 0.2 on the k = 0 dataset); the flags the
-port lacks raise NotImplementedError, and --device cuda without a card
-raises instead of running on the CPU."""
+--acceleration too (and |k| < 0.2 on the k = 0 dataset), --flow-model auto
+in single-run and sweep (the probe picks variational on the clean castle);
+--census-weight > 0, which the port lacks, raises NotImplementedError,
+and --device cuda without a card raises instead of running on the CPU."""
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -131,14 +133,40 @@ def test_test_flow(dataset, capsys):
     assert lines[1].endswith("-> OK")
 
 
-@pytest.mark.parametrize("flags", [["--acceleration", "--flow-model", "auto"],
-                                   ["--flow-model", "auto"],
-                                   ["--census-weight", "0.5"]])
+@pytest.mark.parametrize("flags", [
+    ["--acceleration", "--census-weight", "0.5"],
+    ["--flow-model", "auto", "--census-weight", "0.5"],
+    ["--census-weight", "0.5"]])
 def test_unported_flags_raise(dataset, tmp_path, flags):
+    """--census-weight > 0 (ROADMAP A10) raises, whatever comes with it;
+    --acceleration and --flow-model auto run (the tests below)."""
     for cmd in (["single-run", "--data", str(dataset)],
                 ["sweep", "--path", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cmd + flags + CPU)
+
+
+@pytest.mark.parametrize("flags", [["--acceleration", "--flow-model", "auto"],
+                                   ["--flow-model", "auto"]])
+def test_flow_model_auto_runs(dataset, tmp_path, capsys, flags):
+    """--flow-model auto probes the pair and prints the preset it picked
+    (the clean castle: variational), in single-run and (without
+    --acceleration) in sweep."""
+    out = tmp_path / "res"
+    cli.main(["single-run", "--data", str(dataset), "--out", str(out)]
+             + EST + flags + CPU)
+    assert "flow model auto -> variational" in capsys.readouterr().out
+    est = json.loads((out / "estimate.json").read_text())
+    assert np.isfinite(est["v"]).all() and est["num_inliers"] > 0
+    if "--acceleration" in flags:
+        return
+    sweep = tmp_path / "sweep"
+    shutil.copytree(dataset, sweep / "t0",
+                    ignore=shutil.ignore_patterns("results"))
+    (sweep / "tasks.txt").write_text("t0\n")
+    cli.main(["sweep", "--path", str(sweep), "--num-evaluations", "1"]
+             + EST + flags + CPU)
+    assert "flow model auto -> variational" in capsys.readouterr().out
 
 
 def test_cuda_without_a_card_raises(dataset, tmp_path, monkeypatch):

@@ -684,6 +684,105 @@ def test_estimate_with_feedback_config_pass_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_estimate_with_feedback_config_pass_full_on_the_card(cuda_device):
+    """The same test in feedback_mode "full" (each feedback pass the whole
+    schedule again, on its own generator on the card)."""
+    from test_torch_gates import check_feedback_config_pass
+
+    check_feedback_config_pass(cuda_device, "full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+def test_sharded_acceleration_on_the_card_matches_cpu(cuda_device, engine):
+    """estimate_sharded with the acceleration model and the prescore over
+    a gloo group of one rank, on CUDA tensors (B1 per rank; B7 with k free
+    under the fused engine) against the same on the CPU (the plain twins),
+    on the 64x64 castle with k 0.8 and the same draws: v direction 1e-3,
+    w 1e-5, k 1e-3, inliers within 0.5 % (float32 sums in other orders and
+    B1's approximate root), and the acceleration gate."""
+    import dataclasses
+
+    from torch_parallel_ranks import solo_group
+
+    from rs_sfm_tpu_torch.config import PipelineConfig
+    from rs_sfm_tpu_torch.data.synthetic import (castle_scene,
+                                                 default_intrinsics,
+                                                 render_pair)
+    from rs_sfm_tpu_torch.eval.gate import V_TRUE, W_TRUE
+    from rs_sfm_tpu_torch.flow.true_flow import true_flow
+    from rs_sfm_tpu_torch.parallel.api import estimate_sharded
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    size = 64
+    intr = default_intrinsics(size, size)
+    pair = render_pair(castle_scene(torch.float64, "cpu"), intr, size, size,
+                       gamma=0.9, k=0.8, v=V_TRUE, w=W_TRUE,
+                       dtype=torch.float64)
+    flow = true_flow(pair.frame1.rs_unproject, pair.frame2.poses_r,
+                     pair.frame2.poses_t, intr).to(torch.float32)
+    cfg = PipelineConfig(ransac_trials=64, ransac_tol=0.02,
+                         refine_iterations=20, refine_starts=2,
+                         refine_rel_tol=0.0, use_acceleration=True,
+                         k_scan_points=9, ransac_prescore_subsample=256,
+                         ransac_prescore_keep=8)
+    if engine == "pallas":
+        cfg = dataclasses.replace(cfg, refine_engine="pallas",
+                                  ransac_engine="pallas")
+    # A pool of every pixel: the draws index the image.
+    valid = torch.linalg.vector_norm(flow, dim=-1).reshape(-1) > 0
+    draws = sample_valid_indices(torch.Generator().manual_seed(3), valid,
+                                 cfg.ransac_trials)
+    rk = trk.lm_sums_multi
+    with solo_group() as group:
+        run = estimate_sharded(group, intr, 0.9, cfg,
+                               pool_per_shard=size * size)
+        want = run(flow, sample_indices=draws)
+        before = (tscore.score_hypotheses.launches, rk.launches)
+        got = run(flow.to(cuda_device), sample_indices=draws.to(cuda_device))
+        torch.cuda.synchronize()
+        after = (tscore.score_hypotheses.launches, rk.launches)
+    assert after[0] - before[0] == 2  # the prescore, then the shortlist
+    assert (after[1] > before[1]) == (engine == "pallas")
+    unit = lambda v: v / np.linalg.norm(v)  # noqa: E731
+    gv, wv = got.v.cpu().double().numpy(), want.v.double().numpy()
+    np.testing.assert_allclose(unit(gv), unit(wv), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got.w.cpu().numpy(), want.w.numpy(), rtol=0,
+                               atol=1e-5)
+    assert abs(float(got.k) - float(want.k)) < 1e-3
+    assert abs(int(got.num_inliers) - int(want.num_inliers)) <= 0.005 * (
+        size * size)
+    assert abs(float(got.k) - 0.8) < 0.2
+    cos = float(unit(gv) @ unit(np.asarray(V_TRUE)))
+    assert np.arccos(min(1.0, cos)) < 0.05
+
+
+@pytest.mark.cuda
+def test_auto_probe_on_the_card_matches_cpu(cuda_device):
+    """The auto preset's probe (B4-B6 in its flow) on the card against its
+    CPU run on the same castle pairs at 270x480, clean and photometric:
+    the statistics within 1e-5 (the flow's kernels are bit-exact to their
+    plain twins), the same preset, and B4-B6 launched."""
+    from rs_sfm_tpu_torch.data.synthetic import apply_photometric
+    from rs_sfm_tpu_torch.eval.gate import PHOTOMETRIC, castle_truth
+    from rs_sfm_tpu_torch.flow.auto import probe_flow_preset
+
+    truth = castle_truth(270, 480, device="cpu")
+    photo = apply_photometric(truth.i2, torch.Generator().manual_seed(1),
+                              **PHOTOMETRIC)
+    for i2, want_name in ((truth.i2, "variational"), (photo, "robust")):
+        want = probe_flow_preset(truth.i1, i2, return_stats=True)
+        before = twarp.warp.launches, tsor.sor_sweeps.launches
+        got = probe_flow_preset(truth.i1.to(cuda_device),
+                                i2.to(cuda_device), return_stats=True)
+        assert twarp.warp.launches > before[0]
+        assert tsor.sor_sweeps.launches > before[1]
+        assert got[0] == want[0] == want_name
+        for key, value in want[1].items():
+            assert abs(got[1][key] - value) <= 1e-5, (key, got, want)
+
+
+@pytest.mark.cuda
 def test_ransac_xla_engine_scores_on_the_kernel(cuda_device):
     """engine="xla" on CUDA tensors scores with B1: one launch, and the
     same result as engine="pallas" from the same draws."""

@@ -13,7 +13,13 @@ flow (an occlusion smear) and an untrusted block.
     (tests/test_torch_pipeline.py); each warm-start refinement restarts on
     a changed pixel set from a model that differs at float32 rounding, and
     on this small, narrow-field problem the direction of v is the weakly
-    determined part of the motion (measured 6e-4 apart, w 6e-6).
+    determined part of the motion (measured 6e-4 apart, w 6e-6);
+  * `estimate_with_feedback` with feedback_mode="full" (one feedback pass
+    re-running RANSAC, the 4-start schedule and its winnow on the cleaned
+    mask) against the JAX package's on its "xla" engines, each pass handed
+    the JAX draws on that pass's trusted mask (pass p of the JAX package
+    draws with fold_in(key, 101 + p)): the port's "xla" and fused engines
+    within the tolerances above.
 """
 
 import dataclasses
@@ -104,14 +110,17 @@ def test_model_feedback_matches_jax(problem):
     cfg = dataclasses.replace(tconfig.E2E_CONFIG, use_refinement=False)
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     warm = tuple(jnp.asarray(a, jnp.float32) for a in (V_TRUE, W_TRUE, 0.0))
-    # Under jit: op by op, JAX compiles each of the feedback pass's many
-    # small operations apart (about 5x the time).
-    res_j = jax.jit(lambda f, m: jpipeline.estimate_from_flow(
-        f, JINTR, GAMMA, jcfg, jax.random.PRNGKey(0), pixel_mask=m,
-        warm_start=warm))(jnp.asarray(flow), jnp.asarray(mask))
-    fj = jax.jit(lambda f, m, r: jfeedback.model_feedback(
-        f, ~m, r, JINTR, GAMMA, jcfg))(jnp.asarray(flow), jnp.asarray(mask),
-                                       res_j)
+
+    def jax_feedback(f, m):
+        # One compile (op by op, JAX compiles each of the feedback pass's
+        # many small operations apart, about 5x the time).
+        res = jpipeline.estimate_from_flow(
+            f, JINTR, GAMMA, jcfg, jax.random.PRNGKey(0), pixel_mask=m,
+            warm_start=warm)
+        return res, jfeedback.model_feedback(f, ~m, res, JINTR, GAMMA, jcfg)
+
+    res_j, fj = run_jitted(jax_feedback, jnp.asarray(flow),
+                           jnp.asarray(mask))
     ft = tfeedback.model_feedback(torch.from_numpy(flow),
                                   ~torch.from_numpy(mask), _to_torch(res_j),
                                   INTR, GAMMA, cfg)
@@ -208,10 +217,95 @@ def test_no_feedback_passes_is_estimate_from_flow(problem):
 
 @pytest.mark.parametrize("change", [
     dict(feedback_revote=True), dict(feedback_fast_inpaint=True),
-    dict(feedback_mode="full")])
+    dict(feedback_mode="full", feedback_revote=True)])
 def test_unported_feedback_options_raise(problem, change):
+    """The re-vote and the decimated inpainting (ROADMAP A10) raise, the
+    re-vote in "full" mode as well."""
     flow, mask = problem
     cfg = dataclasses.replace(tconfig.E2E_CONFIG, ransac_trials=32, **change)
     with pytest.raises(NotImplementedError):
         tpipeline.estimate_with_feedback(torch.from_numpy(flow), INTR, GAMMA,
                                          cfg, torch.Generator().manual_seed(0))
+
+
+FULL_CFG = dataclasses.replace(tconfig.E2E_CONFIG, refine_engine="xla",
+                               ransac_engine="xla", feedback_passes=1,
+                               feedback_mode="full")
+
+
+def _jax_draws(key, trials):
+    """sample_indices for the port: pass p's JAX draws from that pass's
+    trusted pixels (pass 0 the key itself, feedback pass p fold_in(key,
+    101 + p - 1), as the JAX loop draws them)."""
+    def draws(p, valid):
+        k = key if p == 0 else jax.random.fold_in(key, 100 + p)
+        return np.array(jransac.sample_valid_indices(
+            k, jnp.asarray(valid.numpy()), trials))
+    return draws
+
+
+@pytest.fixture(scope="module")
+def jax_full(problem):
+    """The JAX estimation with one "full" feedback pass, "xla" engines,
+    compiled once."""
+    flow, mask = problem
+    jcfg = JaxConfig(**dataclasses.asdict(FULL_CFG))
+    key = jax.random.PRNGKey(2)
+    res = run_jitted(lambda f, m: jpipeline.estimate_with_feedback(
+        f, JINTR, GAMMA, jcfg, key, pixel_mask=m), jnp.asarray(flow),
+        jnp.asarray(mask))
+    return key, jax.tree_util.tree_map(np.asarray, res)
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_full_feedback_mode_matches_jax(problem, jax_full, engine):
+    flow, mask = problem
+    key, rj = jax_full
+    cfg = dataclasses.replace(FULL_CFG, refine_engine=engine,
+                              ransac_engine=engine)
+    passes = []
+
+    def draws(p, valid):
+        passes.append(p)
+        return _jax_draws(key, cfg.ransac_trials)(p, valid)
+
+    rt = tpipeline.estimate_with_feedback(torch.from_numpy(flow), INTR, GAMMA,
+                                          cfg, sample_indices=draws,
+                                          pixel_mask=torch.from_numpy(mask))
+    assert passes == [0, 1]
+    vj, vt = _unit(rj.v), _unit(rt.v.numpy())
+    np.testing.assert_allclose(vt * np.sign(vt @ vj), vj, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(rt.w.numpy(), rj.w, rtol=0, atol=2e-5)
+    n = H * W
+    assert abs(int(rt.num_inliers) - int(rj.num_inliers)) <= 5e-3 * n
+    assert (rt.valid_mask.numpy() != rj.valid_mask).mean() <= 5e-3
+    # A full pass re-runs the multi-start schedule: its diversity starts
+    # are exported again (row 0 the model, then the 4 refined starts).
+    assert rt.top_v.shape == rj.top_v.shape == (5, 3)
+    # On these draws pass 1 settles in another basin (|cos| to the true v
+    # 0.886, both packages); the full pass on the cleaned mask leaves it
+    # (0.9989 in both).
+    assert np.abs(vt @ _unit(V_TRUE)) > 0.998
+
+
+def test_full_feedback_mode_draws_per_pass_generators(problem):
+    """Each "full" pass draws from its own generator, seeded from the
+    caller's seed and the pass (pipeline.pass_generator): the run is
+    reproducible from the seed, fixed draws alone are refused, and the
+    warm-start iteration count does not apply to a full pass."""
+    flow, mask = problem
+    cfg = dataclasses.replace(FULL_CFG, ransac_trials=32,
+                              feedback_refine_iterations=1)
+    args = (torch.from_numpy(flow), INTR, GAMMA, cfg)
+    a, b = (tpipeline.estimate_with_feedback(
+        *args, torch.Generator().manual_seed(7),
+        pixel_mask=torch.from_numpy(mask)) for _ in range(2))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    g = tpipeline.pass_generator(torch.Generator().manual_seed(7), 0)
+    assert g.initial_seed() == (7 * 1_000_003 + 101) % (1 << 63)
+    assert tpipeline.pass_generator(None, 0) is None
+    with pytest.raises(ValueError, match="full"):
+        tpipeline.estimate_with_feedback(
+            *args, sample_indices=np.zeros((32, 9), np.int64))
+    assert np.abs(_unit(a.v.numpy()) @ _unit(V_TRUE)) > 0.998

@@ -263,7 +263,8 @@ def test_prior_and_auto_preset_raise():
         tdense.flow_forward_backward(torch.from_numpy(i1),
                                      torch.from_numpy(i2),
                                      prior=torch.zeros(32, 48, 2))
-    with pytest.raises(NotImplementedError):
+    # "auto" needs the pair (models.resolve_flow_preset), as in JAX.
+    with pytest.raises(KeyError, match="resolve_flow_preset"):
         get_flow_preset("auto")
 
 

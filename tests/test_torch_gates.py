@@ -10,8 +10,8 @@ tests/test_feedback.py's corrupted-band tests at 96x128.
     with the full-HD gate's ~50 % margin.
   * The feedback twins keep tests/test_feedback.py's thresholds.  The port
     draws its own RANSAC stream (a torch.Generator, not a JAX key) and runs
-    the fused refinement (refine_engine="pallas"); the "full"
-    re-estimation mode is not ported, so the second twin runs "refine".
+    the fused refinement (refine_engine="pallas"); the second twin runs
+    each re-estimation mode ("refine" and "full") as a test of its own.
 
 `tests/test_torch_cuda.py` runs the feedback twins on the card through
 `check_feedback_recovers_band` and `check_feedback_config_pass`.
@@ -110,10 +110,11 @@ def check_feedback_recovers_band(device):
     assert float(epe_after[~band].max()) < 0.3
 
 
-def check_feedback_config_pass(device):
+def check_feedback_config_pass(device, mode="refine"):
     """test_feedback.py::test_estimate_with_feedback_config_pass on
-    `device`: feedback_passes = 0 is the single pass, and one warm-start
-    "refine" feedback pass is no worse than it and under 0.02 rad."""
+    `device`: feedback_passes = 0 is the single pass, and one feedback pass
+    in `mode` ("refine": warm-started; "full": the whole schedule again on
+    the cleaned mask) is no worse than it and under 0.02 rad."""
     intr, _, corrupted, _ = _band_scene(5, (40, 56), device)
     base_cfg = dict(ransac_trials=64, ransac_tol=0.01, refine_iterations=20,
                     refine_starts=2, refine_loss_delta_px=3.0,
@@ -128,11 +129,11 @@ def check_feedback_config_pass(device):
     assert torch.equal(res0.v, res0_direct.v)
     err0 = float(translation_error(res0.v, V_BAND))
     cfg1 = PipelineConfig(**base_cfg, feedback_passes=1,
-                          feedback_mode="refine")
+                          feedback_mode=mode)
     res1 = estimate_with_feedback(corrupted, intr, GAMMA, cfg1, gen())
     err1 = float(translation_error(res1.v, V_BAND))
-    assert err1 <= err0 + 1e-4, (err0, err1)
-    assert err1 < 0.02, err1
+    assert err1 <= err0 + 1e-4, (mode, err0, err1)
+    assert err1 < 0.02, (mode, err1)
 
 
 def test_feedback_recovers_corrupted_band():
@@ -141,3 +142,7 @@ def test_feedback_recovers_corrupted_band():
 
 def test_estimate_with_feedback_config_pass():
     check_feedback_config_pass(torch.device("cpu"))
+
+
+def test_estimate_with_feedback_config_pass_full_mode():
+    check_feedback_config_pass(torch.device("cpu"), "full")

@@ -223,9 +223,29 @@ def test_estimation_xla_engine_matches_jax(name, jax_estimates):
 
 
 def test_sharded_xla_refinement_raises():
+    """The sharded "xla" refinement (ROADMAP A8, refused before it was
+    ported) runs: over a group of one rank, `estimate_sharded` with the
+    "xla" engines equals the unsharded estimation on the same draws bit
+    for bit (a pool of every pixel indexes the image); the single start
+    and the winnowed starts.  tests/test_torch_parallel.py holds it on 2
+    ranks."""
+    from rs_sfm_tpu_torch.parallel.api import estimate_sharded
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    import torch_parallel_ranks as ranks
+
     flow = torch.from_numpy(_gt_flow())
-    with pytest.raises(NotImplementedError, match="A8"):
-        tpipeline.estimate_from_flow(flow, INTR, GAMMA, CASES["one_start"],
-                                     torch.Generator().manual_seed(0),
-                                     group=object(), row_offset=0,
-                                     total_rows=H)
+    with ranks.solo_group() as group:
+        for name in ("one_start", "winnow"):
+            cfg = CASES[name]
+            valid = tpipeline.prepare_flow_inputs(flow, INTR, GAMMA, cfg)[4]
+            draws = sample_valid_indices(torch.Generator().manual_seed(0),
+                                         valid, cfg.ransac_trials)
+            want = tpipeline.estimate_from_flow(flow, INTR, GAMMA, cfg,
+                                                sample_indices=draws)
+            got = estimate_sharded(group, INTR, GAMMA, cfg,
+                                   pool_per_shard=H * W)(
+                flow, sample_indices=draws)
+            for f in want._fields:
+                assert torch.equal(getattr(got, f), getattr(want, f)), (
+                    name, f)

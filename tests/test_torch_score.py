@@ -7,7 +7,6 @@ on either side); the test counts such pixels and allows exactly that many.
 Error sums agree to rtol 1e-4 (summation order).
 """
 
-import functools
 import importlib
 
 import numpy as np
@@ -16,6 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax_reference import run_jitted
 
 from rs_sfm_tpu.ops.pallas.score import pack_hyps as jpack_hyps
 from rs_sfm_tpu.ops.pallas.score import pack_pixels as jpack_pixels
@@ -72,15 +72,33 @@ def _torch(p):
     return {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
 
 
-@pytest.mark.parametrize("t", [16, 40, 300])
-def test_plain_scorer_matches_pallas_interpret(t):
-    n = 2048
-    p = _problem(n, t)
-    j = {k: jnp.asarray(v) for k, v in p.items()}
-    num_j, err_j = score_hypotheses_pallas(
-        jpack_pixels(j["coords"], j["flow"], j["alpha"], j["alpha_k"],
-                     j["valid"]),
-        jpack_hyps(j["v"], j["w"], j["k"]), TOL, interpret=True)
+PALLAS_T = (16, 40, 300)
+
+
+@pytest.fixture(scope="module")
+def jax_pallas_scores():
+    """The interpret-mode kernel's (counts, error sums) for each T of
+    PALLAS_T on N = 2048 pixels, in one compiled function."""
+    problems = [_problem(2048, t) for t in PALLAS_T]
+
+    def scores(*arrays):
+        out = []
+        for i in range(len(PALLAS_T)):
+            j = dict(zip(problems[0], arrays[8 * i:8 * i + 8]))
+            out.append(score_hypotheses_pallas(
+                jpack_pixels(j["coords"], j["flow"], j["alpha"],
+                             j["alpha_k"], j["valid"]),
+                jpack_hyps(j["v"], j["w"], j["k"]), TOL, interpret=True))
+        return out
+
+    got = run_jitted(scores, *(jnp.asarray(v) for p in problems
+                               for v in p.values()))
+    return dict(zip(PALLAS_T, zip(problems, got)))
+
+
+@pytest.mark.parametrize("t", PALLAS_T)
+def test_plain_scorer_matches_pallas_interpret(jax_pallas_scores, t):
+    p, (num_j, err_j) = jax_pallas_scores[t]
     tp = _torch(p)
     px = tscore.pack_pixels(tp["coords"], tp["flow"], tp["alpha"],
                             tp["alpha_k"], tp["valid"])
@@ -195,26 +213,33 @@ RANSAC_TRIALS = 64
 RANSAC_TOP_J = 4
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_ransac(engine):
-    """JAX RANSAC with its draws, once per engine: the best hypothesis does
-    not depend on top_j, so one top-4 run serves the top-1 cases too."""
+@pytest.fixture(scope="module")
+def jax_ransac():
+    """JAX RANSAC on both engines with its draws, in one compiled function
+    (jax_reference.run_jitted): the best hypothesis does not depend on
+    top_j, so one top-4 run an engine serves the top-1 cases too."""
     p = _flow_problem()
     key = jax.random.PRNGKey(3)
     j = {k: jnp.asarray(v) for k, v in p.items()}
     idx = np.array(jransac.sample_valid_indices(key, j["valid"],
                                                 RANSAC_TRIALS))
-    rj = jransac.ransac(j["coords"], j["flow"], j["alpha"], j["alpha_k"],
-                        j["valid"], key=key, use_k=False, trials=RANSAC_TRIALS,
-                        tolerance=0.02, chunk=32, engine=engine,
-                        top_j=RANSAC_TOP_J)
+
+    def both(coords, flow, alpha, alpha_k, valid):
+        return {engine: jransac.ransac(
+            coords, flow, alpha, alpha_k, valid, key=key, use_k=False,
+            trials=RANSAC_TRIALS, tolerance=0.02, chunk=32, engine=engine,
+            top_j=RANSAC_TOP_J) for engine in ("pallas", "xla")}
+
+    rj = run_jitted(both, *(j[k] for k in ("coords", "flow", "alpha",
+                                           "alpha_k", "valid")))
     return p, idx, rj
 
 
 @pytest.mark.parametrize("engine,top_j", [("pallas", 1), ("xla", 1),
                                           ("pallas", 4)])
-def test_ransac_matches_jax_with_injected_samples(engine, top_j):
-    p, idx, rj = _jax_ransac(engine)
+def test_ransac_matches_jax_with_injected_samples(jax_ransac, engine, top_j):
+    p, idx, both = jax_ransac
+    rj = both[engine]
     trials = RANSAC_TRIALS
     tp = _torch(p)
     rt = transac.ransac(tp["coords"], tp["flow"], tp["alpha"], tp["alpha_k"],

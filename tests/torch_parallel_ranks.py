@@ -7,6 +7,8 @@ numpy and the port only, so no rank loads JAX.  Each body runs on the CPU
 over gloo and returns numpy arrays.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -43,6 +45,20 @@ def rs_flow(h, w, seed=17):
         ak = get_alpha_k(ys, fl[:, 1] * F, h, GAMMA)
         fl = predict_flow(coords, rho, v, wr, 0.0, a, ak)
     return (fl * F).reshape(h, w, 2).numpy().astype(np.float32)
+
+
+@contextlib.contextmanager
+def solo_group():
+    """The default process group of this process alone (gloo, one rank),
+    destroyed on exit: the world-size-1 group of the in-process tests."""
+    from rs_sfm_tpu_torch.parallel import distributed
+    from rs_sfm_tpu_torch.parallel.launch import _free_port
+
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def _result(res):
@@ -121,3 +137,44 @@ def pairs(rank, world, flows, cfg, sample_indices, pool_per_shard):
                                  pool_per_shard=pool_per_shard)
     res = run(torch.from_numpy(flows), sample_indices=sample_indices)
     return refused, mesh.shape, _result(res)
+
+
+def full_features(rank, world, jobs, prescore_args):
+    """The sharded feature set in one process group, in sequence:
+
+      * each job (flow, intrinsics, gamma, cfg, pool draws, pool size):
+        estimate_sharded over the world group, this rank's result;
+      * the prescore's vote table under the group on this rank's block of
+        `prescore_args` (flow, intrinsics, gamma, cfg, v, w, k, subsample);
+      * global_mesh() over the world (spawn sets LOCAL_WORLD_SIZE).
+    """
+    from rs_sfm_tpu_torch.parallel.api import block_rows, estimate_sharded
+    from rs_sfm_tpu_torch.parallel.distributed import global_mesh
+    from rs_sfm_tpu_torch.solver.pipeline import prepare_flow_inputs
+    from rs_sfm_tpu_torch.solver.ransac import prescore_votes
+
+    results = []
+    for flow, intr, gamma, cfg, draws, pool_per_shard in jobs:
+        run = estimate_sharded(dist.group.WORLD, intr, gamma, cfg,
+                               pool_per_shard=pool_per_shard)
+        results.append(_result(run(torch.from_numpy(flow),
+                                   sample_indices=draws)))
+    flow, intr, gamma, cfg, v, w, k, subsample = prescore_args
+    h = flow.shape[0]
+    row0, rows = block_rows(h, world, rank)
+    coords, flow_n, alpha, alpha_k, valid = prepare_flow_inputs(
+        torch.from_numpy(flow[row0:row0 + rows]), intr, gamma, cfg,
+        row_offset=row0, total_rows=h)
+    votes = prescore_votes(coords, flow_n, alpha, alpha_k, valid,
+                           *(torch.from_numpy(a) for a in (v, w, k)),
+                           cfg.ransac_tol, subsample,
+                           group=dist.group.WORLD)
+    mesh = global_mesh()
+    return (results, [t.numpy() if torch.is_tensor(t) else t
+                      for t in votes], mesh.shape)
+
+
+def batch(rank, world, calls):
+    """Several rank bodies of this module in one process group, in order:
+    `calls` is a list of (body name, args); returns their values."""
+    return [globals()[name](rank, world, *args) for name, args in calls]
