@@ -8,8 +8,10 @@ bench.py's input and, held to the renderer's truth, on the castle pair,
 the solver slice (flow field -> RANSAC -> fused
 Schur-LM -> rectification) in both slice configurations, the estimation
 sharded over two ranks, every rectification engine, the STRESS.md protocol
-on its four full-HD scenes, the command-line interface and the
-acceleration model (k) on the castle, through the
+on its four full-HD scenes, the command-line interface, the
+acceleration model (k) on the castle, the relock pass, the pseudo-real
+gate through the camera-pipeline nuisances and the video entry points,
+through the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
 each path against their plain PyTorch versions.
 
@@ -37,7 +39,10 @@ and the script exits non-zero; nothing is caught and continued):
               searches, on every tile of csrc/match.cu ("*" marks
               match.tile_plan's choice), and B5's tile plans at every
               pyramid level ("*" marks sor.tile_plan's choice; launches in
-              parentheses)
+              parentheses); B4's search with a prior (the relock pass's
+              tie-break) at the pass's 17x30 coarse and 34x60, 68x120
+              refine searches, bit-exact to its plain version with a smooth
+              prior and on exact ties, its ms beside the prior-free ms
   [4 slice]   both solver-slice configurations at full HD: v, w, inliers,
               per-stage ms (CUDA events), peak memory, launch counts; the
               hypotheses RANSAC picks on seed-1 draws made on the card
@@ -122,6 +127,36 @@ and the script exits non-zero; nothing is caught and continued):
               (invalid root slots included) and B2 / B3 (J = 4) with k free
               against their plain versions, with their ms; (e) the clean
               castle through dense flow into (a), ungated
+  [12 relock] flow_with_relock with E2E_FLOW_PRESET and E2E_CONFIG: (a)
+              phase 6b's clean castle, force=True, at the clean gates; (b)
+              the repetitive-texture castle at full HD (STRESS.md's reptex
+              probe, ungated): the ambiguous share, whether the trigger
+              fired, the winning shift n, p_hat, EPE median and err_v of the
+              single pass, the winning shift and the relocked result; (a)
+              and (b) with their stage ms (flow pass 1, the five shift
+              estimations, model feedback, flow pass 2, the final
+              estimation) and launches asserted; (c) the clean and the
+              repetitive castle at 135x240 on the card and on the CPU with
+              the same draws: the ambiguity, p_hat and the winning n
+              bit-exact, the second flow pass from the CPU's prior
+              bit-exact on the card; the clean castle's final v and w
+              within phase 5's gates
+  [13 pseudo-real] tests/test_real_ingestion.py's gate: the full-HD castle
+              with galaxy_stabil intrinsics, both frames through the Bayer
+              demosaic and JPEG 82 (frame 2 also exposure, vignette and a 3
+              px streak), 8-bit PNGs through cli.main single-run (robust
+              flow, occlusion mask, tol 0.02, 4 starts): err_v <= 0.2,
+              inliers > 0.3 of the pixels, the artifacts; then blur, the
+              streak, the demosaic and JPEG on a full-HD frame, card
+              against CPU: max |diff| and the JPEG levels rounded apart
+  [14 video]  pair_flows_dense on phase 6b's castle frames [1, 2, 2] (the
+              second pair static), estimate_video with ESTIMATION_CONFIG:
+              ok [True, False], pair 0 at the clean err_v gate, pair 1
+              zeroed, the pose held; process_video_checkpointed in windows
+              of one pair, with and without depth in the checkpoints: a
+              resume after window 1's file is lost estimates window 1 alone,
+              one with every window saved estimates nothing, and both equal
+              the first run
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -184,6 +219,10 @@ OPS_SOR = 92
 OPS_MEDIAN = 38
 OPS_MATCH_REFINE = 51
 OPS_MATCH_COARSE = 27
+# With a prior, per (candidate, pixel): the distance's 2 subtractions, 2
+# multiplies and add, the factor's multiply, add, divide and add, and the
+# selection cost's multiply.
+OPS_MATCH_PRIOR = 10
 # Per source pixel (zbuffer.cu): two adds and floors, four bound compares,
 # the target index and one 64-bit atomic min.
 OPS_ZBUFFER = 10
@@ -256,6 +295,36 @@ CLI_DEEP_ERR_V = 0.04
 ACCEL_K = 0.8
 ACCEL_GATES = {"k_err": 0.2, "err_v": 0.05}
 ACCEL_PRESCORE = dict(ransac_prescore_subsample=4096, ransac_prescore_keep=16)
+
+# B4's search with a prior (phase 3): the e2e pass's searches at these
+# (shape, mode), the full-HD pass's coarse search and its first two
+# refines (the backward flow's pyramid).
+PRIOR_SEARCHES = (((17, 30), "coarse"), ((34, 60), "refine"),
+                  ((68, 120), "refine"))
+# The relock phase (12): phase 6b's clean castle through flow_with_relock
+# (force=True) at the clean gate; the repetitive-texture castle at full HD
+# (STRESS.md's reptex probe: ungated); at 135x240 on the card against the
+# CPU with the same draws, the clean castle (the final motion within phase
+# 5's gates) and the repetitive one.  On the repetitive one the first
+# flow pass, the ambiguity, p_hat, the winning shift and the second flow
+# pass from one prior are held bit-exact, its motion printed only: its
+# estimations fit about 7,000 of 32,400 pixels to a wrong model (w about
+# 10x the truth), and the card's RANSAC breaks count ties by B1's
+# approximate error sums (ROADMAP's hazards), so card and CPU models part
+# by 1e-3 and more (chip run 2 of PR 12).
+RELOCK_PARITY_SIZE = (135, 240)
+# The pseudo-real gate (phase 13): tests/test_real_ingestion.py's pair.
+PSEUDO_REAL = dict(v=(0.3, -0.1, 0.2), w=(0.002, -0.001, 0.003),
+                   camera="galaxy_stabil", err_v=0.2, inlier_share=0.3)
+PSEUDO_REAL_FRAMES = (
+    dict(noise_sigma=0.003, demosaic=True, jpeg_quality=82),
+    dict(exposure=1.25, vignette=0.25, noise_sigma=0.004,
+         motion_blur_px=3.0, demosaic=True, jpeg_quality=82))
+# The four camera-pipeline nuisances, card against CPU (phase 13).
+NUISANCES = {"blur": dict(blur=True), "motion_blur": dict(motion_blur_px=3.0),
+             "demosaic": dict(demosaic=True),
+             "jpeg": dict(jpeg_quality=82)}
+NUISANCE_ATOL = 1e-6
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -884,7 +953,9 @@ def e2e_searches(i1, i2):
     search = km.match_search
 
     def recorded(*args):
-        calls.append(args)
+        # (i1m, i2m, flow, radius, ratio, fallback); the pass has no prior.
+        check(len(args) < 7 or args[6] is None, "the e2e pass has no prior")
+        calls.append(args[:6])
         return search(*args)
 
     # The wrapper counts on the module's match_search, this one meanwhile.
@@ -973,6 +1044,80 @@ def check_searches(i1, i2):
     return rec
 
 
+def _smooth_field(h, w, dev, seed, scale):
+    """An (h, w, 2) float32 field on `dev`: uniform noise smoothed by a
+    5x5 mean, times `scale`."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.rand((1, 2, h, w), generator=gen, device=dev) * 2.0 - 1.0
+    return (F.avg_pool2d(noise, 5, 1, 2)[0].permute(1, 2, 0) * scale
+            ).contiguous()
+
+
+def check_prior_searches(i1, i2):
+    """B4's search with a prior at PRIOR_SEARCHES of the e2e pass: a smooth
+    random prior (3 px about the searched flow), and exact ties (frame 2's
+    plane made periodic, period 3 columns, in its left half, the prior at
+    the lock 3 px right of the prior-free pick), each bit-exact to the
+    plain version; ms with and without the prior, and the bound with the
+    prior's 8 bytes a pixel and its operations."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import match as km
+
+    calls = {}
+    for args in e2e_searches(i1, i2):
+        key = (tuple(args[0].shape), "coarse" if args[2] is None
+               else "refine")
+        calls.setdefault(key, args)
+    rows = []
+    for key in PRIOR_SEARCHES:
+        check(key in calls, f"the e2e pass searches {key}")
+        i1m, i2m, flow, radius, _, _ = calls[key]
+        (h, w), mode = key
+        dev = i1m.device
+        smooth = _smooth_field(h, w, dev, h, 3.0) + (
+            flow if flow is not None else 0.0)
+        stripe = torch.tensor([0.5, -0.25, 0.75], device=dev)
+        i2t = i2m.clone()
+        i2t[:, : w // 2] = stripe[torch.arange(w // 2, device=dev) % 3]
+        free_t = km.match_search_plain(i1m, i2t, flow, radius)
+        ties = free_t[0] + torch.tensor([3.0, 0.0], device=dev)
+        moved = {}
+        for name, planes, prior, free in (
+                ("smooth", (i1m, i2m), smooth,
+                 km.match_search_plain(i1m, i2m, flow, radius)),
+                ("ties", (i1m, i2t), ties, free_t)):
+            got = km.match_search(*planes, flow, radius, prior=prior)
+            ref = km.match_search_plain(*planes, flow, radius, prior=prior)
+            torch.cuda.synchronize()
+            check(all(same_bits(g, r) for g, r in zip(got, ref)),
+                  f"match_search {h}x{w} {mode} prior {name} bit-exact")
+            moved[name] = float(torch.any(ref[0] != free[0], dim=-1)
+                                .float().mean())
+        ms = time_ms(lambda: km.match_search(i1m, i2m, flow, radius,
+                                             prior=smooth))
+        ms_free = time_ms(lambda: km.match_search(i1m, i2m, flow, radius))
+        n, k = h * w, (2 * radius + 1) ** 2
+        nbytes = n * (4 + 4 + (8 if flow is not None else 0) + 8 + 8 + 8
+                      + 1)
+        ops = ((OPS_MATCH_REFINE if flow is not None else OPS_MATCH_COARSE)
+               + OPS_MATCH_PRIOR) * k * n
+        b_ms, b_by = bound(nbytes, ops)
+        rows.append({"shape": [h, w], "mode": mode, "candidates": k,
+                     "ms": ms, "ms_without_prior": ms_free, "bound_ms": b_ms,
+                     "bound_by": b_by, "moved": moved})
+        print(f"[3 kernels] B4 match_search {h}x{w} {mode} K={k} with a "
+              f"prior: bit-exact to plain (smooth prior and exact ties; "
+              f"picks moved by the prior {moved['smooth']:.4f} / "
+              f"{moved['ties']:.4f} of pixels); {ms:.4f} ms vs "
+              f"{ms_free:.4f} ms without, bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+    return rows
+
+
 def phase_flow_kernels(dev):
     """B4-B6 at full-HD shapes of the e2e path; returns {kernel: record}."""
     import torch
@@ -1017,6 +1162,7 @@ def phase_flow_kernels(dev):
           f"bound {r['bound_ms']:.4f} ms", flush=True)
 
     out["match_search"] = check_searches(i1, i2)
+    out["match_search"]["prior"] = check_prior_searches(i1, i2)
 
     # B6: both planes of make_flow; bit-exact.  As (2, H, W) planes, and as
     # the flow solver calls it: from SOR's separate u and v, and from an
@@ -2677,6 +2823,357 @@ def phase_cli(dev, castle, castle_photo):
               f"auto probe {case}: B4-B6 launched {counts}")
 
 
+def relock_launches(res, flow_cfg, est_cfg, h, w, limits):
+    """Kernel launches of one flow_with_relock call at (h, w): one flow
+    pass and the estimation, or when the relock fired two flow passes, the
+    five shift estimations and the final one."""
+    import dataclasses
+
+    flow = flow_launches(flow_cfg, h, w, limits)
+    est = estimation_launches(est_cfg)
+    if res.shift is None:
+        return {k: flow.get(k, 0) + est.get(k, 0)
+                for k in set(flow) | set(est)}
+    score_cfg = dataclasses.replace(
+        est_cfg, ransac_trials=min(est_cfg.ransac_trials, 128),
+        refine_starts=1, refine_iterations=8, feedback_passes=0)
+    score = estimation_launches(score_cfg)
+    keys = set(flow) | set(est) | set(score)
+    return {k: 2 * flow.get(k, 0) + 5 * score.get(k, 0) + est.get(k, 0)
+            for k in keys}
+
+
+def phase_relock(dev, castle):
+    """The relock pass (flow/relock.py): (a) phase 6b's clean castle, (b)
+    the repetitive-texture castle at full HD, (c) the repetitive-texture
+    castle at 135x240 on the card and on the CPU (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.data.synthetic import repetitive_scene
+    from rs_sfm_tpu_torch.eval.gate import (castle_truth, gate_metrics,
+                                            V_TRUE)
+    from rs_sfm_tpu_torch.eval.metrics import translation_error
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+    from rs_sfm_tpu_torch.flow.relock import flow_with_relock
+    from rs_sfm_tpu_torch.ops.kernels.sor import card_limits
+    from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
+    from rs_sfm_tpu_torch.solver.ransac import sample_valid_indices
+
+    limits = card_limits(dev)
+
+    def relock(truth, force, gen_seed=0):
+        wrap = reset_counts()
+        mark, read = stage_marks()
+        res = flow_with_relock(truth.i1, truth.i2, E2E_FLOW_PRESET,
+                               truth.intr, GAMMA, E2E_CONFIG,
+                               torch.Generator(device=dev).manual_seed(
+                                   gen_seed), force=force, timer=mark)
+        stages = read()
+        counts = {k: fn.launches for k, fn in wrap.items()}
+        expect = relock_launches(res, E2E_FLOW_PRESET, E2E_CONFIG, H, W,
+                                 limits)
+        for kname, n in expect.items():
+            check(counts[kname] == n, f"relock launches {kname} "
+                  f"{counts[kname]} == {n}")
+        return res, stages, counts
+
+    def show(res):
+        return (f"ambiguous {float(res.ambiguous_frac):.4f}, fired "
+                f"{res.shift is not None}, n {res.shift}, p_hat "
+                + ("-" if res.period is None
+                   else np.array2string(res.period.cpu().numpy(),
+                                        precision=4)))
+
+    # (a) The clean castle: the relock must not hurt it.
+    t0 = time.perf_counter()
+    res, stages, counts = relock(castle, force=True)
+    got = gate_metrics(castle, res.fb.flow, res.result)
+    gates = CASTLE_GATES["clean"][1]
+    print(f"[12 relock] (a) clean castle {W}x{H}, force=True: {show(res)}; "
+          + " ".join(f"{k}={got[k]:.4f} (gate {g})" for k, g in gates.items())
+          + "; ms " + " ".join(f"{k}={v:.2f}" for k, v in stages.items())
+          + f"; launches {counts}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for k, gate in gates.items():
+        check(got[k] <= gate, f"relock clean castle: {k} {got[k]} <= {gate}")
+
+    # (b) The repetitive-texture castle at full HD (reptex): ungated.
+    t0 = time.perf_counter()
+    rep = castle_truth(H, W, dev, scene=repetitive_scene(torch.float32, dev))
+    moving = torch.linalg.vector_norm(rep.gt_flow, dim=-1) > 0
+
+    def epe(flow):
+        d = torch.linalg.vector_norm(flow - rep.gt_flow, dim=-1)[moving]
+        return float(torch.quantile(d.double(), 0.5))
+
+    fb1 = flow_forward_backward(rep.i1, rep.i2, E2E_FLOW_PRESET)
+    single = estimate_with_feedback(
+        fb1.flow, rep.intr, GAMMA, E2E_CONFIG,
+        torch.Generator(device=dev).manual_seed(0), pixel_mask=~fb1.occlusion)
+    res, stages, counts = relock(rep, force=False)
+    print(f"[12 relock] (b) repetitive castle {W}x{H} (STRESS.md reptex: "
+          f"38.8 px, 1.98 rad through a single pass; ungated): {show(res)}; "
+          f"pass 1 EPE median {epe(fb1.flow):.3f} px err_v "
+          f"{float(translation_error(single.v, V_TRUE)):.4f}; winning shift "
+          f"err_v {float(translation_error(res.first_pass.v, V_TRUE)):.4f}; "
+          f"relocked EPE median {epe(res.fb.flow):.3f} px err_v "
+          f"{float(translation_error(res.result.v, V_TRUE)):.4f}; ms "
+          + " ".join(f"{k}={v:.2f}" for k, v in stages.items())
+          + f"; launches {counts}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for f in ("v", "w", "k"):
+        check(bool(torch.isfinite(getattr(res.result, f)).all()),
+              f"relock repetitive castle: {f} finite")
+
+    # (c) 135x240, card against CPU, the same draws on each stage.
+    h, w = RELOCK_PARITY_SIZE
+
+    def draws(stage, valid):
+        seed = 1 + sum(d * 1000 ** i for i, d in enumerate(stage))
+        return sample_valid_indices(
+            torch.Generator().manual_seed(seed), valid.cpu(),
+            E2E_CONFIG.ransac_trials if stage == (7,)
+            else min(E2E_CONFIG.ransac_trials, 128)).to(valid.device)
+
+    for name, scene in (("clean", None),
+                        ("repetitive", repetitive_scene(torch.float64,
+                                                        "cpu"))):
+        t0 = time.perf_counter()
+        small = castle_truth(h, w, "cpu", scene=scene)
+        out = []
+        for where in (dev, torch.device("cpu")):
+            wrap = reset_counts()
+            out.append(flow_with_relock(
+                small.i1.to(where), small.i2.to(where), E2E_FLOW_PRESET,
+                small.intr, GAMMA, E2E_CONFIG, force=True,
+                sample_indices=draws))
+            if where.type == "cuda":
+                check(wrap["match_search"].launches > 0,
+                      "relock on the card launched match_search")
+        g, c = out
+        # The second pass from the CPU's prior on the card.
+        fb2 = flow_forward_backward(small.i1.to(dev), small.i2.to(dev),
+                                    E2E_FLOW_PRESET, prior=c.prior.to(dev))
+        same_flow2 = torch.equal(fb2.flow.cpu(), c.fb.flow)
+        same_p = torch.equal(g.period.cpu(), c.period)
+        errs = []
+        for tag, rg, rc in (("winning shift", g.first_pass, c.first_pass),
+                            ("final", g.result, c.result)):
+            vg, vc = unit(rg.v.cpu().numpy()), unit(rc.v.numpy())
+            errs.append((tag, float(np.max(np.abs(vg * np.sign(vg @ vc)
+                                                  - vc))),
+                         float(np.max(np.abs(rg.w.cpu().numpy()
+                                             - rc.w.numpy()))),
+                         int(rg.num_inliers), int(rc.num_inliers)))
+        d = torch.linalg.norm(g.fb.flow.cpu() - c.fb.flow, dim=-1)
+        print(f"[12 relock] (c) {name} castle {w}x{h}, card vs CPU, force="
+              f"True, the same draws: card {show(g)}; CPU {show(c)}; p_hat "
+              f"bit-exact {same_p}; second pass from the CPU's prior "
+              f"bit-exact {same_flow2}; second-pass flows |diff| median "
+              f"{float(d.median()):.3e} max {float(d.max()):.3e} px; "
+              + "; ".join(f"{tag}: v diff {dv:.3e} w diff {dw:.3e} inliers "
+                          f"{ng} vs {nc}" for tag, dv, dw, ng, nc in errs)
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        check(g.shift == c.shift, f"relock {name} {h}x{w}: the same "
+              f"winning shift ({g.shift} vs {c.shift})")
+        check(same_p and torch.equal(g.ambiguous_frac.cpu(),
+                                     c.ambiguous_frac),
+              f"relock {name} {h}x{w}: ambiguity and p_hat bit-exact")
+        check(same_flow2, f"relock {name} {h}x{w}: the second pass from one "
+              "prior bit-exact")
+        if name == "clean":
+            # The final motion within phase 5's gates (the winning shift's
+            # 8 unconverged iterations are printed only).
+            _, dv, dw, _, _ = errs[1]
+            check(dv <= E2E_GATES["v_direction"] and dw <= E2E_GATES["w"],
+                  f"relock clean {h}x{w}: v diff {dv}, w diff {dw} within "
+                  "gates")
+
+
+def phase_pseudo_real(dev):
+    """tests/test_real_ingestion.py's gate on the card: its full-HD castle
+    pair with the camera-pipeline nuisances as 8-bit PNGs through the
+    port's `single-run` (robust flow, occlusion mask, tol 0.02, 4 starts);
+    then each of the four nuisances on one full-HD frame on the card
+    against the CPU."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch import cli
+    from rs_sfm_tpu_torch.data import png
+    from rs_sfm_tpu_torch.data.intrinsics import REGISTRY
+    from rs_sfm_tpu_torch.data.synthetic import (apply_photometric,
+                                                 castle_scene, jpeg_levels,
+                                                 render_pair)
+    from rs_sfm_tpu_torch.eval.metrics import translation_error
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "pseudo_real"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pair = render_pair(castle_scene(torch.float32, dev),
+                       REGISTRY[PSEUDO_REAL["camera"]], H, W, gamma=GAMMA,
+                       k=0.0, v=PSEUDO_REAL["v"], w=PSEUDO_REAL["w"],
+                       dtype=torch.float32)
+    frames = []
+    for i, (frame, opts) in enumerate(zip((pair.frame1, pair.frame2),
+                                          PSEUDO_REAL_FRAMES)):
+        img = apply_photometric(frame.rs_image, torch.Generator(
+            device=dev).manual_seed(2 + i), **opts)
+        frames.append(img)
+        png.write(str(work / f"frame{i + 1}.png"), np.clip(np.round(
+            img.cpu().numpy() * 255), 0, 255).astype(np.uint8))
+    prep_s = time.perf_counter() - t0
+    wrap = reset_counts()
+    out = work / "results"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["single-run", "--data", str(work), "--camera",
+                  PSEUDO_REAL["camera"], "--out", str(out), "--flow-model",
+                  "robust", "--occlusion-mask", "--ransac-tol", "0.02",
+                  "--refine-starts", "4", "--device", str(dev)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    est = json.loads((out / "estimate.json").read_text())
+    err_v = float(translation_error(torch.tensor(est["v"], dtype=torch.float64),
+                                    PSEUDO_REAL["v"]))
+    share = est["num_inliers"] / (H * W)
+    arts = sorted(p.name for p in out.iterdir())
+    ply = (out / "point_cloud.ply").stat().st_size
+    print(f"[13 pseudo-real] {W}x{H} castle, {PSEUDO_REAL['camera']}, "
+          f"demosaic + JPEG 82 (+ exposure, vignette, 3 px streak on frame "
+          f"2), 8-bit PNGs ({prep_s:.1f} s), single-run --flow-model robust "
+          f"--occlusion-mask --ransac-tol 0.02 --refine-starts 4 "
+          f"({run_s:.1f} s): err_v {err_v:.4f} (gate {PSEUDO_REAL['err_v']}),"
+          f" inliers {est['num_inliers']} = {share:.4f} of pixels (gate > "
+          f"{PSEUDO_REAL['inlier_share']}); point_cloud.ply {ply} bytes; "
+          f"launches {counts}; "
+          + " | ".join(buf.getvalue().strip().splitlines()[-4:]), flush=True)
+    check(err_v <= PSEUDO_REAL["err_v"], f"pseudo-real err_v {err_v}")
+    check(share > PSEUDO_REAL["inlier_share"], f"pseudo-real inliers {share}")
+    for name in ("optical_flow.png", "MinimalDepth.png", "backprojection.png",
+                 "point_cloud.ply"):
+        check(name in arts, f"pseudo-real: {name} written")
+    check(ply > 1e6, f"pseudo-real: point cloud of {ply} bytes")
+    # The CLI's estimation runs the JAX default engines ("xla" LM; B1
+    # scores RANSAC on the card).
+    for kname in ("score_hypotheses", "warp", "match_search", "sor_sweeps",
+                  "median3_planes"):
+        check(counts[kname] > 0, f"pseudo-real launched {kname}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # Each nuisance on frame 1, card against CPU (float32, no noise).
+    frame = pair.frame1.rs_image
+    frame_c = frame.cpu()
+    rows = []
+    for name, opts in NUISANCES.items():
+        got = apply_photometric(frame, **opts)
+        ms = wall_ms(lambda: apply_photometric(frame, **opts), runs=5)
+        ref = apply_photometric(frame_c, **opts)
+        diff = float(torch.abs(got.cpu() - ref).max())
+        row = f"{name} max |card - CPU| {diff:.3e}, {ms:.2f} ms"
+        if name == "jpeg":
+            lg = jpeg_levels(frame, opts["jpeg_quality"])[0].cpu()
+            lc = jpeg_levels(frame_c, opts["jpeg_quality"])[0]
+            flips = int((lg != lc).sum())
+            row += f", {flips} of {lc.numel()} coefficients rounded apart"
+            check(flips <= 1e-5 * lc.numel(), f"JPEG levels apart: {flips}")
+        rows.append(row)
+        check(diff <= NUISANCE_ATOL, f"nuisance {name} card vs CPU {diff}")
+    print(f"[13 pseudo-real] nuisances on the {W}x{H} frame, card vs CPU "
+          f"(float32; DCT without matmul, so no TF32): " + "; ".join(rows),
+          flush=True)
+
+
+def phase_video(dev, castle):
+    """Video (video.py, video_ckpt.py) on phase 6b's full-HD castle frames
+    [frame 1, frame 2, frame 2]: dense flow per pair, the estimation per
+    pair with fault isolation, the trajectory, checkpointed windows with a
+    resume (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from rs_sfm_tpu_torch.config import ESTIMATION_CONFIG
+    from rs_sfm_tpu_torch.eval.gate import V_TRUE
+    from rs_sfm_tpu_torch.eval.metrics import translation_error
+    from rs_sfm_tpu_torch.models import get_flow_preset
+    from rs_sfm_tpu_torch.video import (VideoResult, accumulate_trajectory,
+                                        estimate_video, pair_flows_dense)
+    from rs_sfm_tpu_torch.video_ckpt import process_video_checkpointed
+
+    t0 = time.perf_counter()
+    wrap = reset_counts()
+    frames = torch.stack([castle.i1, castle.i2, castle.i2])
+    flows = pair_flows_dense(frames, get_flow_preset(
+        "variational", warp_engine="pallas", sor_engine="pallas"))
+    intr, cfg = castle.intr, ESTIMATION_CONFIG
+    res = estimate_video(flows, intr, GAMMA, cfg,
+                         torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    ok = res.ok.cpu().tolist()
+    err_v = float(translation_error(res.v[0], V_TRUE))
+    rot, t = accumulate_trajectory(res, GAMMA, H)
+    gate = CASTLE_GATES["clean"][1]["err_v"]
+    print(f"[14 video] {W}x{H} castle frames [1, 2, 2]: pair flows max |f| "
+          f"{float(flows[0].abs().max()):.2f} / {float(flows[1].abs().max()):.2e}"
+          f" px; ok {ok}; pair 0 err_v {err_v:.4f} (gate {gate}), inliers "
+          f"{res.num_inliers.cpu().tolist()}; trajectory t "
+          f"{t.cpu().numpy().round(4).tolist()}; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(ok == [True, False], f"video ok {ok}")
+    check(err_v <= gate, f"video pair 0 err_v {err_v}")
+    for f in ("v", "w", "k", "depth_maps"):
+        check(not bool(torch.any(getattr(res, f)[1] != 0)),
+              f"video pair 1 {f} zero")
+    check(torch.equal(rot[2], rot[1]) and torch.equal(t[2], t[1]),
+          "video: pose held across pair 1")
+    for kname in ("score_hypotheses", "lm_iter_multi", "warp", "match_search",
+                  "sor_sweeps", "median3_planes"):
+        check(counts[kname] > 0, f"video launched {kname}")
+
+    # Checkpointed windows of one pair; a resume after window 1's file is
+    # lost restores window 0 and recomputes window 1 alone.
+    for save_depth in (True, False):
+        t0 = time.perf_counter()
+        ckpt = ROOT / "build" / "video_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        def run():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            with record_passes() as est:
+                got = process_video_checkpointed(
+                    flows, intr, GAMMA, cfg, gen, ckpt_dir=str(ckpt),
+                    window=1, save_depth=save_depth)
+            return got, len(est)
+
+        first, n1 = run()
+        (ckpt / "window_000001.npz").unlink()
+        second, n2 = run()
+        third, n3 = run()
+        same = all(torch.equal(getattr(first, f), getattr(second, f))
+                   and torch.equal(getattr(first, f), getattr(third, f))
+                   for f in VideoResult._fields)
+        size = sum(p.stat().st_size for p in ckpt.iterdir())
+        print(f"[14 video] checkpointed, window 1, save_depth={save_depth}: "
+              f"estimations {n1}, after losing window 1 {n2}, all restored "
+              f"{n3}; results equal to the first run's {same}; checkpoints "
+              f"{size} bytes; {time.perf_counter() - t0:.1f} s", flush=True)
+        check((n1, n2, n3) == (2, 1, 0), f"video estimations {(n1, n2, n3)}")
+        check(same, "video: resumed results equal the first run's")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def main():
     import argparse
 
@@ -2717,6 +3214,9 @@ def main():
         # The acceleration model's shapes beside the main path's.
         records[kname].update({f"{key}_accel": rec[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms")})
+    phase_relock(dev, castle)
+    phase_pseudo_real(dev)
+    phase_video(dev, castle)
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 

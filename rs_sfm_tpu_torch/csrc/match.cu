@@ -19,10 +19,15 @@
 //   d2 = (warped - I1(p))^2;
 //   cost = 5x5 box sum of d2 over edge-clamped neighbours, rows first, each
 //          5-sum left to right: x[i+2] + x[i+1] + x[i] + x[i-1] + x[i-2];
-//   then ops/kernels/match.py::_scan's update of (best, second) (a dethroned
-//   best or a losing candidate becomes the second when it lies more than
-//   1.5 px, max-norm, from the best), ambiguous = best >= 0.9f * second,
-//   and with ratio > 0 the fallback where best >= ratio * second.
+//   sel = cost, or with a prior (the relock pass's model flow)
+//         cost * (1 + (0.35f * d2) / (d2 + max(r, 1)^2)), d2 the squared
+//         distance of cand to the prior at p (dense.py::_prior_factor);
+//   then ops/kernels/match.py::_scan's update of (best, second): the best
+//   is the first least sel; a dethroned best or a losing candidate becomes
+//   the second when it lies more than 1.5 px, max-norm, from the best and
+//   its raw cost is the lower; ambiguous = best cost >= 0.9f * second
+//   cost (raw costs), and without a prior, with ratio > 0, the fallback
+//   where best cost >= ratio * second cost.
 //
 // What bounds it on this card: operations and their dependences.  The
 // inputs are at most a few 135x240 planes (in L2); every (candidate, pixel)
@@ -50,6 +55,9 @@
 // kernel one thread a pixel) was slower at every search of the e2e pass
 // (PERF.md section 6) and is not kept.
 //
+// The prior costs a pixel's scan 8 more bytes (read once into registers)
+// and 10 operations a candidate; without one the scan is as before.
+//
 // Numerics: compiled with -fmad=false; every value goes through the plain
 // version's IEEE operations in its order, so the result is bit-identical to
 // ops/kernels/match.py::match_search_plain on the card.
@@ -65,6 +73,8 @@ constexpr int THREADS = 512;
 // staged window of I2 covers; corners outside it are read from global
 // memory (the same values).
 constexpr int MARGIN = 8;
+// The prior's tie-break strength (rs_sfm_tpu/flow/dense.py:437).
+constexpr float PRIOR_W = 0.35f;
 
 // Tile shapes (rows, columns), indexed by the wrapper's plan.
 constexpr int N_TILES = 4;
@@ -120,15 +130,18 @@ __device__ __forceinline__ float sample(const Window& win,
 
 // The per-pixel scan state of ops/kernels/match.py::_scan.
 struct Scan {
-  float best_cost, second_cost, bu, bv, su, sv;
+  float best_sel, best_cost, second_cost, bu, bv, su, sv;
 
   __device__ __forceinline__ void init() {
-    best_cost = second_cost = INFINITY;
+    best_sel = best_cost = second_cost = INFINITY;
     bu = bv = su = sv = 0.0f;
   }
 
-  __device__ __forceinline__ void step(float cost, float cu, float cv) {
-    const bool better = cost < best_cost;
+  // cost: the candidate's raw cost; sel: its selection cost (the raw cost
+  // without a prior).
+  __device__ __forceinline__ void step(float cost, float sel, float cu,
+                                       float cv) {
+    const bool better = sel < best_sel;
     const bool far = fmaxf(fabsf(cu - bu), fabsf(cv - bv)) > 1.5f;
     const bool to_second = better && far;
     const bool new_second = !better && far && (cost < second_cost);
@@ -137,6 +150,7 @@ struct Scan {
     su = to_second ? bu : (new_second ? cu : su);
     sv = to_second ? bv : (new_second ? cv : sv);
     if (better) {
+      best_sel = sel;
       best_cost = cost;
       bu = cu;
       bv = cv;
@@ -185,7 +199,7 @@ template <int TH, int TW, bool kCoarse>
 __global__ void __launch_bounds__(THREADS)
 match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
              const float* __restrict__ flow, const float* __restrict__ fb,
-             float* __restrict__ best, float* __restrict__ second,
+             const float* __restrict__ prior, float* __restrict__ best, float* __restrict__ second,
              unsigned char* __restrict__ amb, int h, int w, int radius,
              float ratio) {
   constexpr int HH = TH + 4, HW = TW + 4;
@@ -244,6 +258,11 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   __syncthreads();
   float2 base = make_float2(0.0f, 0.0f);
   if (!kCoarse && owner) base = fls[(ty + 2) * HW + tx + 2];
+  const bool use_prior = prior != nullptr;
+  float2 pr = make_float2(0.0f, 0.0f);
+  if (use_prior && owner) pr = reinterpret_cast<const float2*>(prior)[p];
+  const float s_r = (float)max(radius, 1);
+  const float s2 = s_r * s_r;
 
   for (int row = 0; row < side; ++row) {
     const int dv = row - radius;
@@ -275,7 +294,15 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
       const float cv = kCoarse ? (float)dv : base.y + (float)dv;
       for (int g = 0; g < side; ++g) {
         const float du = (float)(g - radius);
-        s.step(cost[g * PIX + tid], kCoarse ? du : base.x + du, cv);
+        const float cu = kCoarse ? du : base.x + du;
+        const float c = cost[g * PIX + tid];
+        float sel = c;
+        if (use_prior) {
+          const float eu = cu - pr.x, ev = cv - pr.y;
+          const float d2p = eu * eu + ev * ev;
+          sel = c * (1.0f + (PRIOR_W * d2p) / (d2p + s2));
+        }
+        s.step(c, sel, cu, cv);
       }
     }
   }
@@ -284,9 +311,9 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
 
 template <int TH, int TW, bool kCoarse>
 int launch_tile(const float* i1, const float* i2, const float* flow,
-                const float* fb, float* best, float* second,
-                unsigned char* amb, int h, int w, int radius, float ratio,
-                cudaStream_t stream) {
+                const float* fb, const float* prior, float* best,
+                float* second, unsigned char* amb, int h, int w, int radius,
+                float ratio, cudaStream_t stream) {
   const size_t smem =
       (size_t)smem_floats<TH, TW, kCoarse>(radius) * sizeof(float);
   auto kernel = match_kernel<TH, TW, kCoarse>;
@@ -294,21 +321,22 @@ int launch_tile(const float* i1, const float* i2, const float* flow,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 tiles((w + TW - 1) / TW, (h + TH - 1) / TH);
-  kernel<<<tiles, THREADS, smem, stream>>>(i1, i2, flow, fb, best, second,
-                                           amb, h, w, radius, ratio);
+  kernel<<<tiles, THREADS, smem, stream>>>(i1, i2, flow, fb, prior, best,
+                                           second, amb, h, w, radius, ratio);
   return (int)cudaGetLastError();
 }
 
 template <bool kCoarse>
 int launch_mode(int tile, const float* i1, const float* i2, const float* flow,
-                const float* fb, float* best, float* second,
-                unsigned char* amb, int h, int w, int radius, float ratio,
-                cudaStream_t stream) {
+                const float* fb, const float* prior, float* best,
+                float* second, unsigned char* amb, int h, int w, int radius,
+                float ratio, cudaStream_t stream) {
   switch (tile) {
 #define MATCH_TILE(t)                                                        \
   case t:                                                                    \
     return launch_tile<TILE_H[t], TILE_W[t], kCoarse>(                       \
-        i1, i2, flow, fb, best, second, amb, h, w, radius, ratio, stream);
+        i1, i2, flow, fb, prior, best, second, amb, h, w, radius, ratio,     \
+        stream);
     MATCH_TILE(0)
     MATCH_TILE(1)
     MATCH_TILE(2)
@@ -323,19 +351,22 @@ int launch_mode(int tile, const float* i1, const float* i2, const float* flow,
 
 // i1, i2: (h, w) f32 matching planes; flow: (h, w, 2) f32, 8-byte
 // aligned, or null for the coarse search; fb: (h, w, 2) f32 ratio fallback,
-// 8-byte aligned, or null for none (then ratio is not read); best, second:
+// 8-byte aligned, or null for none (then ratio is not read); prior: (h, w,
+// 2) f32, 8-byte aligned, or null for none (the caller passes no fallback
+// with a prior); best, second:
 // (h, w, 2) f32 out; amb: (h, w) bytes out; tile: index into TILE_H /
 // TILE_W.
 extern "C" int match_launch(const float* i1, const float* i2,
-                            const float* flow, const float* fb, float* best,
-                            float* second, unsigned char* amb, int h, int w,
-                            int radius, float ratio, int tile, void* stream) {
+                            const float* flow, const float* fb,
+                            const float* prior, float* best, float* second,
+                            unsigned char* amb, int h, int w, int radius,
+                            float ratio, int tile, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   if (radius < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (flow == nullptr)
-    return launch_mode<true>(tile, i1, i2, flow, fb, best, second, amb, h, w,
-                             radius, ratio, s);
-  return launch_mode<false>(tile, i1, i2, flow, fb, best, second, amb, h, w,
-                            radius, ratio, s);
+    return launch_mode<true>(tile, i1, i2, flow, fb, prior, best, second, amb,
+                             h, w, radius, ratio, s);
+  return launch_mode<false>(tile, i1, i2, flow, fb, prior, best, second, amb,
+                            h, w, radius, ratio, s);
 }

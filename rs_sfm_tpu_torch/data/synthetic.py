@@ -1,8 +1,7 @@
 """Procedural synthetic rolling-shutter renderer (port of
-rs_sfm_tpu/data/synthetic.py: the castle, mesh-grade castle and stress
-scenes, the ray-cast render of a two-frame RS pair with its ground truth,
-and the photometric nuisances' exposure, tone-curve, vignette and noise
-options).
+rs_sfm_tpu/data/synthetic.py: the castle, mesh-grade castle, stress and
+repetitive-texture scenes, the ray-cast render of a two-frame RS pair with
+its ground truth, and the photometric and camera-pipeline nuisances).
 
 The scene is a set of textured rectangles with closed-form ray
 intersection, so every pixel of every scanline renders under its own pose
@@ -38,7 +37,7 @@ from rs_sfm_tpu_torch.flow.dense import as_device_tensor
 from rs_sfm_tpu_torch.geom import so3
 from rs_sfm_tpu_torch.geom.camera import Intrinsics, true_div
 from rs_sfm_tpu_torch.geom.rspose import beta1, beta2
-from rs_sfm_tpu_torch.ops import linalg
+from rs_sfm_tpu_torch.ops import linalg, stencil
 
 
 class Scene(NamedTuple):
@@ -46,8 +45,8 @@ class Scene(NamedTuple):
 
     velocity (optional): per-rectangle world velocity (units per frame
     interval) of independently moving objects; None = static scene.
-    periodic: the periodic textures of the JAX package's repetitive scene,
-    which this port does not render (None only).
+    periodic (optional): per-rectangle period of a strictly periodic
+    texture (texture-coordinate units; 0 = the noise texture).
     """
 
     origins: torch.Tensor     # (P, 3)
@@ -55,7 +54,7 @@ class Scene(NamedTuple):
     edge2: torch.Tensor       # (P, 3)
     base_color: torch.Tensor  # (P, 3) in [0, 1]
     velocity: Optional[torch.Tensor] = None  # (P, 3) or None (static)
-    periodic: Optional[torch.Tensor] = None  # must be None
+    periodic: Optional[torch.Tensor] = None  # (P,) or None
 
 
 class SyntheticFrame(NamedTuple):
@@ -114,6 +113,19 @@ def _scene(rects, dtype, device, velocity=None) -> Scene:
                                  cols[0].device, dtype))
     return Scene(origins=cols[0], edge1=cols[1], edge2=cols[2],
                  base_color=cols[3], velocity=vel)
+
+
+def repetitive_scene(dtype=torch.float32, device=None, *,
+                     period: float = 0.045) -> Scene:
+    """The castle with strictly periodic texture on its four wall
+    rectangles (synthetic.py:123): every period-shifted displacement is a
+    perfect photometric match (the aperture failure family of the relock
+    pass, flow/relock.py); the ground and the roof keep the noise
+    texture."""
+    base = castle_scene(dtype, device)
+    periodic = torch.tensor([0.0, period, period, period, period, 0.0],
+                            dtype=dtype, device=base.origins.device)
+    return base._replace(periodic=periodic)
 
 
 def castle_mesh_scene(dtype=torch.float32, device=None, *,
@@ -257,6 +269,22 @@ def _texture(prim_id: int, a, b, base_color):
     return torch.clamp(col, 0.02, 0.98)
 
 
+def _texture_periodic(a, b, base_color, period: float):
+    """Strictly periodic brick-like pattern of `period` (texture units): a
+    soft-edged checker plus a grating, with no aperiodic part
+    (synthetic.py:288)."""
+    per = torch.tensor(period, dtype=a.dtype, device=a.device)
+    pa = a / per
+    pb = b / per
+    sq = (torch.tanh(8.0 * torch.sin(2.0 * math.pi * pa))
+          * torch.tanh(8.0 * torch.sin(2.0 * math.pi * pb)))
+    grat = 0.3 * torch.sin(2.0 * math.pi * 2.0 * pa)
+    mod = 0.30 * sq + grat
+    tint = torch.tensor([1.0, 0.9, 0.8], dtype=a.dtype, device=a.device)
+    col = base_color * (0.75 + mod[..., None] * tint)
+    return torch.clamp(col, 0.02, 0.98)
+
+
 def _dot(x, n):
     """x · n over the last axis, summed in index order."""
     return x[..., 0] * n[0] + x[..., 1] * n[1] + x[..., 2] * n[2]
@@ -272,8 +300,6 @@ def _intersect(scene: Scene, origin, direction, time=None):
     Returns (depth (...,), world point (..., 3), colour (..., 3), hit
     (...,), mover (...,) bool: the nearest hit was a moving primitive).
     """
-    if scene.periodic is not None:
-        raise NotImplementedError("periodic textures are not ported")
     dtype = origin.dtype
     shape = origin.shape[:-1]
     best_t = torch.full(shape, torch.inf, dtype=dtype, device=origin.device)
@@ -285,6 +311,8 @@ def _intersect(scene: Scene, origin, direction, time=None):
         moving_flags = [False] * num_prims
     else:
         moving_flags = (scene.velocity != 0.0).any(dim=1).tolist()
+    periods = ([0.0] * num_prims if scene.periodic is None
+               else scene.periodic.tolist())
     for p in range(num_prims):
         p0 = scene.origins[p]
         if moving_flags[p]:
@@ -304,6 +332,8 @@ def _intersect(scene: Scene, origin, direction, time=None):
               & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0))
         closer = ok & (t < best_t)
         color = _texture(p, a, b, scene.base_color[p])
+        if periods[p] > 0.0:
+            color = _texture_periodic(a, b, scene.base_color[p], periods[p])
         best_color = torch.where(closer[..., None], color, best_color)
         best_t = torch.where(closer, t, best_t)
         best_mover = best_mover | closer if moving_flags[p] else (
@@ -403,9 +433,13 @@ def render_pair(scene: Scene, intr: Intrinsics, rows: int, cols: int, *,
 def apply_photometric(image, generator: Optional[torch.Generator] = None, *,
                       exposure=1.0, gamma_curve=1.0, vignette=0.0,
                       noise_sigma=0.0, noise=None, blur=False,
-                      motion_blur_px=0.0, jpeg_quality=0, demosaic=False):
-    """Photometric nuisances (synthetic.py:511): a global exposure gain, a
-    tone curve, radial vignetting and Gaussian sensor noise.
+                      motion_blur_px=0.0, motion_blur_dir=(1.0, 0.35),
+                      jpeg_quality=0, demosaic=False):
+    """Photometric and camera-pipeline nuisances (synthetic.py:511), in
+    the JAX package's order: a global exposure gain, a tone curve, radial
+    vignetting, a motion-blur streak, a 3x3 defocus blur, Bayer RGGB
+    sampling with a bilinear demosaic, Gaussian sensor noise, a clip, 8x8
+    DCT quantization at a JPEG quality, and a clip.
 
     Args:
       image: (H, W, 3) in [0, 1]; a tensor stays on its device, anything
@@ -413,14 +447,15 @@ def apply_photometric(image, generator: Optional[torch.Generator] = None, *,
       generator: torch.Generator on the image's device for the noise.
       noise: optional (H, W, 3) standard-normal draws that replace the
         generator's (the tests hand over the JAX package's).
-
-    The blur, motion-blur, JPEG and demosaic options are not ported and
-    raise NotImplementedError.
+      motion_blur_px: length (px) of a box streak along motion_blur_dir:
+        the mean of max(ceil(px) + 1, 2) rolled copies, each shifted by
+        the nearest integer of its point on the streak.
+      blur: a separable [0.25, 0.5, 0.25] blur (rolled, so it wraps).
+      demosaic: each channel sampled on its RGGB sites and refilled by a
+        normalised bilinear convolution (edge-clamped).
+      jpeg_quality: 1..100 (0 = off): per-channel 8x8 orthonormal DCT,
+        quantized by the Annex-K table at libjpeg's quality scale.
     """
-    if blur or motion_blur_px > 0.0 or jpeg_quality or demosaic:
-        raise NotImplementedError(
-            "apply_photometric: only exposure, gamma_curve, vignette and "
-            "noise_sigma are ported")
     img = as_device_tensor(image)
     dtype = img.dtype
     h, w = img.shape[:2]
@@ -436,13 +471,132 @@ def apply_photometric(image, generator: Optional[torch.Generator] = None, *,
               + true_div(ys - h / 2, h / 2) ** 2) / 2.0
         out = out * (1.0 - torch.tensor(vignette, dtype=dtype,
                                         device=img.device) * r2)[..., None]
+    if motion_blur_px > 0.0:
+        d = np.asarray(motion_blur_dir, np.float64)
+        d = d / max(np.linalg.norm(d), 1e-9)
+        s_count = max(int(np.ceil(motion_blur_px)) + 1, 2)
+        acc = None
+        for s_i in range(s_count):
+            frac = s_i / (s_count - 1) - 0.5
+            dx = int(round(frac * motion_blur_px * d[0]))
+            dy = int(round(frac * motion_blur_px * d[1]))
+            tap = torch.roll(out, (dy, dx), (0, 1))
+            acc = tap if acc is None else acc + tap
+        out = true_div(acc, float(s_count))
+    if blur:
+        for axis in (0, 1):
+            out = (0.25 * torch.roll(out, -1, axis) + 0.5 * out
+                   + 0.25 * torch.roll(out, 1, axis))
+    if demosaic:
+        out = _bayer_demosaic(out)
     if noise_sigma:
         if noise is None:
             noise = torch.randn(out.shape, generator=generator, dtype=dtype,
                                 device=img.device)
         out = out + noise_sigma * noise.to(dtype)
     out = torch.clamp(out, 0.0, 1.0)
+    if jpeg_quality:
+        out = _jpeg_quantize(out, int(jpeg_quality))
     return torch.clamp(out, 0.0, 1.0)
+
+
+def _bayer_demosaic(img):
+    """RGGB Bayer sampling + bilinear demosaic (synthetic.py:578): each
+    channel keeps its sites and is refilled by a normalised convolution
+    with [0.5, 1, 0.5] along both axes over edge-clamped shifts."""
+    dtype = img.dtype
+    h, w = img.shape[:2]
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    even_y = (ys % 2) == 0
+    even_x = (xs % 2) == 0
+    r_site = even_y & even_x
+    b_site = ~even_y & ~even_x
+    g_site = ~(r_site | b_site)
+
+    def blur1(x, axis):
+        return (0.5 * stencil.shift(x, -1, axis) + 1.0 * x
+                + 0.5 * stencil.shift(x, 1, axis))
+
+    def fill(chan, site):
+        m = site.to(dtype)
+        num = blur1(blur1(chan * m, -2), -1)
+        den = blur1(blur1(m, -2), -1)
+        return num / torch.clamp(den, min=1e-6)
+
+    return torch.stack([fill(img[..., 0], r_site), fill(img[..., 1], g_site),
+                        fill(img[..., 2], b_site)], dim=-1)
+
+
+# Standard JPEG luminance quantization table (Annex K).
+_JPEG_Q = np.asarray([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99]], np.float64)
+
+
+def _dct_rows(c, x):
+    """out[..., i, l] = sum_j c[i, j] x[..., j, l], the 8 products added in
+    j order as elementwise operations: no matmul, so no TF32 on the card
+    (whatever torch.backends.cuda.matmul allows) and the same rounding on
+    the card as on the CPU."""
+    out = c[:, 0, None] * x[..., 0, None, :]
+    for j in range(1, 8):
+        out = out + c[:, j, None] * x[..., j, None, :]
+    return out
+
+
+def jpeg_levels(img, quality: int):
+    """(levels, table, basis): the quantized DCT levels round(C X C^T / q)
+    of every 8x8 block and channel of an (H, W, 3) image in [0, 1], as
+    (BH, BW, 3, 8, 8) floats, with the quality's table q (8, 8) and the
+    DCT basis C (8, 8), in the image's dtype and device (synthetic.py:624).
+
+    libjpeg's scale (q < 50: 5000 / q, else 200 - 2q) of the Annex-K
+    table, floored and clipped to >= 1; the frame edge-padded to whole
+    blocks; coefficients rounded half to even.  The two-sided product
+    C X C^T runs as `_dct_rows` twice (rows, then columns)."""
+    h, w = img.shape[:2]
+    dtype = img.dtype
+    dev = img.device
+    scale = 5000.0 / quality if quality < 50 else 200.0 - 2.0 * quality
+    q = np.maximum(np.floor((_JPEG_Q * scale + 50.0) / 100.0), 1.0)
+    hh, ww = h + (-h) % 8, w + (-w) % 8
+    iy = torch.arange(hh, device=dev).clamp_(max=h - 1)
+    ix = torch.arange(ww, device=dev).clamp_(max=w - 1)
+    x = img.index_select(0, iy).index_select(1, ix)
+    # Type-II orthonormal DCT basis.
+    n_idx = np.arange(8)
+    c = np.sqrt(2.0 / 8.0) * np.cos(
+        np.pi * (2 * n_idx[None, :] + 1) * n_idx[:, None] / 16.0)
+    c[0, :] = np.sqrt(1.0 / 8.0)
+    cb = torch.tensor(c, dtype=dtype, device=dev)
+    qb = torch.tensor(q, dtype=dtype, device=dev)
+
+    blocks = (x * 255.0 - 128.0).reshape(hh // 8, 8, ww // 8, 8, 3)
+    blocks = blocks.permute(0, 2, 4, 1, 3)  # (BH, BW, 3, 8, 8)
+    # The transposes move the column index into the contracted place.
+    coef = _dct_rows(cb, _dct_rows(cb, blocks).transpose(-1, -2))
+    return torch.round(coef.transpose(-1, -2) / qb), qb, cb
+
+
+def _jpeg_quantize(img, quality: int):
+    """Per-channel 8x8 DCT quantization at a JPEG quality: the image of
+    `jpeg_levels`' levels times the table, C^T Y C (synthetic.py:624)."""
+    h, w = img.shape[:2]
+    hh, ww = h + (-h) % 8, w + (-w) % 8
+    levels, qb, cb = jpeg_levels(img, quality)
+    coef = levels * qb
+    ct = cb.transpose(0, 1)
+    rec = _dct_rows(ct, _dct_rows(ct, coef).transpose(-1, -2))
+    rec = rec.transpose(-1, -2)
+    rec = rec.permute(0, 3, 1, 4, 2).reshape(hh, ww, 3)
+    return torch.clamp(true_div(rec + 128.0, 255.0), 0.0, 1.0)[:h, :w]
 
 
 def default_intrinsics(rows: int, cols: int) -> Intrinsics:

@@ -34,11 +34,12 @@ class CastleTruth(NamedTuple):
     poses_t: torch.Tensor     # (H, 3)
 
 
-def castle_truth(rows: int, cols: int, device=None,
-                 k: float = 0.0) -> CastleTruth:
+def castle_truth(rows: int, cols: int, device=None, k: float = 0.0,
+                 scene=None) -> CastleTruth:
     """The castle pair rendered in float32 at (rows, cols) with γ 0.9, the
     gate's (v, w) and acceleration factor k, its true flow and true depth.
-    `device` None means the CUDA device (raises without one)."""
+    `device` None means the CUDA device (raises without one); `scene`
+    another scene of the castle's geometry (default: the castle)."""
     from rs_sfm_tpu_torch.data.dataset import true_depth_from_unprojection
     from rs_sfm_tpu_torch.data.synthetic import (castle_scene,
                                                  default_intrinsics,
@@ -46,9 +47,10 @@ def castle_truth(rows: int, cols: int, device=None,
     from rs_sfm_tpu_torch.flow.true_flow import true_flow
 
     intr = default_intrinsics(rows, cols)
-    pair = render_pair(castle_scene(torch.float32, device), intr, rows, cols,
-                       gamma=GAMMA, k=k, v=V_TRUE, w=W_TRUE,
-                       dtype=torch.float32)
+    if scene is None:
+        scene = castle_scene(torch.float32, device)
+    pair = render_pair(scene, intr, rows, cols, gamma=GAMMA, k=k, v=V_TRUE,
+                       w=W_TRUE, dtype=torch.float32)
     f1, f2 = pair.frame1, pair.frame2
     gt = true_flow(f1.rs_unproject, f2.poses_r, f2.poses_t, intr)
     td = true_depth_from_unprojection(f1.rs_unproject, f1.poses_r,
@@ -68,21 +70,34 @@ def production_gate(truth: CastleTruth, i2, flow_cfg, est_cfg,
     `timer`, if given, is called after each stage is issued: "flow_forward",
     "flow_backward" (dense flow), "estimate", "feedback" (the estimation),
     "rectify" and "metrics"."""
-    from rs_sfm_tpu_torch.eval.metrics import (depth_rmse,
-                                               mean_reprojection_error,
-                                               translation_error)
     from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
-    from rs_sfm_tpu_torch.geom.rspose import scanline_poses
-    from rs_sfm_tpu_torch.rectify.backproject import backproject
     from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
 
     mark = timer if timer is not None else (lambda _name: None)
-    intr = truth.intr
     fb = flow_forward_backward(truth.i1, i2, flow_cfg, timer=mark)
+    res = estimate_with_feedback(fb.flow, truth.intr, GAMMA, est_cfg,
+                                 generator, pixel_mask=~fb.occlusion,
+                                 timer=mark)
+    return gate_metrics(truth, fb.flow, res, timer=mark)
+
+
+def gate_metrics(truth: CastleTruth, flow, res, *,
+                 timer: Optional[Callable[[str], None]] = None) -> dict:
+    """The gate's metrics of a flow and the estimation on it: the flow's
+    EPE median on the moving pixels, err_v, and through scanline poses and
+    the default (packed24) rectification err3d and depth RMSE; returns
+    {"epe_median", "err_v", "err3d", "depth_rmse", "k"} as floats.
+    `timer`, if given, is called with "rectify" and "metrics"."""
+    from rs_sfm_tpu_torch.eval.metrics import (depth_rmse,
+                                               mean_reprojection_error,
+                                               translation_error)
+    from rs_sfm_tpu_torch.geom.rspose import scanline_poses
+    from rs_sfm_tpu_torch.rectify.backproject import backproject
+
+    mark = timer if timer is not None else (lambda _name: None)
+    intr = truth.intr
     moving = torch.linalg.vector_norm(truth.gt_flow, dim=-1) > 0
-    epe = torch.linalg.vector_norm(fb.flow - truth.gt_flow, dim=-1)[moving]
-    res = estimate_with_feedback(fb.flow, intr, GAMMA, est_cfg, generator,
-                                 pixel_mask=~fb.occlusion, timer=mark)
+    epe = torch.linalg.vector_norm(flow - truth.gt_flow, dim=-1)[moving]
     err_v = translation_error(res.v, V_TRUE)
     r_sl, t_sl = scanline_poses(res.v, res.w, res.k, truth.i1.shape[0], GAMMA,
                                 dtype=torch.float32)

@@ -24,8 +24,14 @@ absolute form, which agrees with the JAX XLA loop to about 1e-3 px
 search kernel (ops/kernels/match.py), which scans the candidates in the
 JAX order.
 
-Not ported (they raise NotImplementedError): the census data term, the
-shifted discrete refine, the anchored pass, and the flow prior (relock).
+The relock pass (flow/relock.py) gives dense flow a prior, an (H, W, 2)
+flow that breaks the discrete searches' exact ties toward itself (the
+search kernel's prior), and the anchored pass (`anchor_ambiguous`) zeroes
+the data term at the pixels the searches found ambiguous, so the
+smoothness term fills them from their unambiguous neighbours.
+
+Not ported (they raise NotImplementedError): the census data term and the
+shifted discrete refine.
 """
 
 from __future__ import annotations
@@ -49,8 +55,6 @@ def check_supported(cfg: DenseFlowConfig) -> None:
         raise NotImplementedError("the census data term is not ported")
     if cfg.refine_shifted:
         raise NotImplementedError("the shifted discrete refine is not ported")
-    if cfg.anchor_ambiguous:
-        raise NotImplementedError("the anchored pass is not ported")
     for name in ("warp_engine", "sor_engine"):
         if getattr(cfg, name) not in ("xla", "pallas"):
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
@@ -177,26 +181,28 @@ def _match_planes(i1, i2, cfg):
     return out[0], out[1]
 
 
-def _coarse_init(i1, i2, radius: int, cfg):
+def _coarse_init(i1, i2, radius: int, cfg, prior=None):
     """Exhaustive integer search in [-radius, radius]^2 at the coarsest
-    level (5x5 box-filtered squared differences), median-cleaned.
+    level (5x5 box-filtered squared differences), median-cleaned; `prior`
+    (this level's) breaks ties toward itself.
     Returns (flow, second, ambiguous)."""
     i1m, i2m = _match_planes(i1, i2, cfg)
     fallback = (torch.zeros(i1m.shape + (2,), dtype=i1m.dtype,
                             device=i1m.device)
                 if cfg.match_ratio > 0.0 else None)
     best, second, amb = kmatch.match_search(i1m, i2m, None, radius,
-                                            cfg.match_ratio, fallback)
+                                            cfg.match_ratio, fallback, prior)
     return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
-def _discrete_refine(i1, i2, flow, radius: int, cfg):
+def _discrete_refine(i1, i2, flow, radius: int, cfg, prior=None):
     """Warp-local integer search (exact mode): candidate flow + d for d in
-    [-radius, radius]^2, each I2 re-warped, best box-filtered SSD per pixel.
+    [-radius, radius]^2, each I2 re-warped, best box-filtered SSD per pixel;
+    `prior` (this level's) breaks ties toward itself.
     Returns (median-cleaned flow, second, ambiguous)."""
     i1m, i2m = _match_planes(i1, i2, cfg)
     best, second, amb = kmatch.match_search(i1m, i2m, flow, radius,
-                                            cfg.match_ratio, flow)
+                                            cfg.match_ratio, flow, prior)
     return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
@@ -208,8 +214,13 @@ def _sor(coef, u, v, iters: int, cfg):
                            wgrad=float(cfg.gamma_grad))
 
 
-def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True):
-    """Warping + red-black SOR solves at one pyramid level."""
+def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True,
+                 data_mask=None):
+    """Warping + red-black SOR solves at one pyramid level.
+
+    data_mask: optional (H, W) float in {0, 1}; where it is 0 all 8
+    coefficient planes are zeroed, so SOR's point solve there is the
+    smoothness term's neighbour average alone (the anchored pass)."""
     warps = cfg.warps if finest or cfg.warps_coarse <= 0 else \
         cfg.warps_coarse
     iters = cfg.iters if finest or cfg.iters_coarse <= 0 else \
@@ -223,6 +234,8 @@ def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True):
             b2 = _gauss_blur(_gauss_blur(_gauss_blur(_gauss_blur(i2w))))
             i2w = i2w * torch.clamp((b1 + 1e-2) / (b2 + 1e-2), 0.7, 1.4)
         coef = linearize(i1, i2w, flow, g1)
+        if data_mask is not None:
+            coef = coef * data_mask
         u, v = _sor(coef, flow[..., 0], flow[..., 1], iters, cfg)
         flow = (_median_flow(u, v) if cfg.median
                 else torch.stack([u, v], dim=-1))
@@ -295,6 +308,12 @@ def as_device_tensor(x, device=None, dtype=None):
     return t if dtype is None or t.dtype == dtype else t.to(dtype)
 
 
+def _halve_flow(flow):
+    """A flow field blur-downsampled like the images, its values halved
+    (the pixel units of the next pyramid level)."""
+    return _downsample(flow.permute(2, 0, 1)).permute(1, 2, 0) * 0.5
+
+
 def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
                    prior=None) -> FlowAux:
     """Dense flow from image1 to image2 plus the discrete-matching
@@ -304,13 +323,15 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
       image1, image2: (H, W[, 3]) float32 images in [0, 1]: tensors on the
         device to run on, or arrays, which go to the CUDA device.
       cfg: DenseFlowConfig.
-      prior: not ported (the relock pass); must be None.
+      prior: optional (H, W, 2) pixel flow (the relock pass's model flow).
+        Every discrete search multiplies each candidate's selection cost by
+        a penalty growing with its distance to the prior (at that level's
+        scale), so exact photometric ties resolve toward it; the
+        match_ratio fallback is then skipped.
 
     Returns:
       FlowAux(flow (H, W, 2), ambiguous (H, W) bool, alt_flow (H, W, 2)).
     """
-    if prior is not None:
-        raise NotImplementedError("the flow prior (relock) is not ported")
     check_supported(cfg)
     i1 = _to_gray(as_device_tensor(image1, dtype=torch.float32))
     i2 = _to_gray(as_device_tensor(image2, i1.device, torch.float32))
@@ -327,14 +348,25 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
         both = _downsample(torch.stack([p1[-1], p2[-1]]))
         p1.append(both[0])
         p2.append(both[1])
+    priors = [None] * n_levels
+    if prior is not None:
+        priors[0] = as_device_tensor(prior, i1.device, i1.dtype)
+        for lvl in range(1, n_levels):
+            priors[lvl] = _halve_flow(priors[lvl - 1])
 
     # Ambiguity export: OR over the searched discrete scales; the
     # alternative lock from the finest scale that flagged each pixel.
+    # The anchored pass keeps the current level's mask (amb_lv): the
+    # coarse search's, nearest-upsampled level by level and OR'ed with
+    # each level's refine mask.
     amb_full = torch.zeros((h, w), dtype=torch.bool, device=i1.device)
     alt_full = None
+    amb_lv = None
     if cfg.init_search_radius > 0:
         flow, alt_c, amb_c = _coarse_init(p1[-1], p2[-1],
-                                          cfg.init_search_radius, cfg)
+                                          cfg.init_search_radius, cfg,
+                                          priors[-1])
+        amb_lv = amb_c if cfg.anchor_ambiguous else None
         amb_full = _upsample_mask(amb_c, (h, w))
         alt_full = torch.where(amb_full[..., None],
                                _upsample_flow(alt_c, (h, w)),
@@ -347,6 +379,8 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
         shape_l = tuple(p1[lvl].shape)
         if lvl != n_levels - 1:
             flow = _upsample_flow(flow, shape_l)
+            if amb_lv is not None:
+                amb_lv = _upsample_mask(amb_lv, shape_l)
         if lvl != 0:
             if (cfg.refine_search_radius > 0
                     and min(shape_l) <= cfg.refine_max_size):
@@ -355,13 +389,19 @@ def dense_flow_aux(image1, image2, cfg: DenseFlowConfig = DenseFlowConfig(),
                 radius = cfg.refine_fine_radius
             if radius > 0:
                 flow, alt, amb = _discrete_refine(p1[lvl], p2[lvl], flow,
-                                                  radius, cfg)
+                                                  radius, cfg, priors[lvl])
                 amb_up = _upsample_mask(amb, (h, w))
                 amb_full = amb_full | amb_up
+                if cfg.anchor_ambiguous:
+                    amb_lv = amb if amb_lv is None else amb_lv | amb
                 alt_up = _upsample_flow(alt, (h, w))
                 alt_full = (torch.where(amb_up[..., None], alt_up, alt_full)
                             if alt_full is not None else alt_up)
-        flow = _level_solve(p1[lvl], p2[lvl], flow, cfg, finest=(lvl == 0))
+        data_mask = None
+        if amb_lv is not None:
+            data_mask = 1.0 - amb_lv.to(i1.dtype)
+        flow = _level_solve(p1[lvl], p2[lvl], flow, cfg, finest=(lvl == 0),
+                            data_mask=data_mask)
     if alt_full is None:
         alt_full = flow
     return FlowAux(flow=flow, ambiguous=amb_full, alt_flow=alt_full)
@@ -391,17 +431,22 @@ def flow_forward_backward(image1, image2,
     occ_rel (|w_f|^2 + |w_b(x + w_f)|^2) + occ_abs.
 
     With backward_scale = 2^s the backward flow is computed on frames
-    downsampled s times and upsampled back.  `timer`, if given, is called
+    downsampled s times and upsampled back.  `prior` (an (H, W, 2) pixel
+    flow; see dense_flow_aux) guides the forward flow; the backward flow
+    takes it negated, blur-downsampled and halved s times (an anchor for
+    the tie-break, read at the same pixel).  `timer`, if given, is called
     with "flow_forward" once the forward flow has been enqueued and with
     "flow_backward" once the backward flow and the test have (stage timing
     with CUDA events; nothing is synchronised here).
     """
-    if prior is not None:
-        raise NotImplementedError("the flow prior (relock) is not ported")
     mark = timer if timer is not None else (lambda _name: None)
     image1 = as_device_tensor(image1, dtype=torch.float32)
     image2 = as_device_tensor(image2, image1.device, torch.float32)
-    fw_aux = dense_flow_aux(image1, image2, cfg)
+    bw_prior = None
+    if prior is not None:
+        prior = as_device_tensor(prior, image1.device, torch.float32)
+        bw_prior = -prior
+    fw_aux = dense_flow_aux(image1, image2, cfg, prior)
     fw = fw_aux.flow
     mark("flow_forward")
     if cfg.backward_scale > 1:
@@ -413,10 +458,12 @@ def flow_forward_backward(image1, image2,
         g = torch.stack([_to_gray(image1), _to_gray(image2)])
         for _ in range(cfg.backward_scale.bit_length() - 1):
             g = _downsample(g)
-        bw_lo = dense_flow_aux(g[1], g[0], cfg).flow
+            if bw_prior is not None:
+                bw_prior = _halve_flow(bw_prior)
+        bw_lo = dense_flow_aux(g[1], g[0], cfg, bw_prior).flow
         bw = _upsample_flow(bw_lo, fw.shape[:2])
     else:
-        bw = dense_flow_aux(image2, image1, cfg).flow
+        bw = dense_flow_aux(image2, image1, cfg, bw_prior).flow
     # Backward flow sampled at x + w_f(x), both planes in one warp.
     bw_at_fw = kwarp.warp(bw.permute(2, 0, 1).contiguous(),
                           fw).permute(1, 2, 0)

@@ -18,6 +18,13 @@ Modes:
   * coarse (`flow` None): candidate k is d_k, and I2 is read at
     (clip(y + dv), clip(x + du)).
 Candidate k = dy * side + dx has offset d_k = (dx - r, dy - r).
+
+With a prior (an (H, W, 2) flow, the relock pass's model flow), each
+candidate's selection cost is its raw cost times
+1 + 0.35 d2 / (d2 + max(r, 1)^2), d2 its squared distance to the prior
+(dense.py::_prior_factor): exact photometric ties resolve toward the
+prior.  The second best and the ambiguity mask keep the raw costs, and the
+ratio fallback is skipped (dense.py::_match_scan).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from rs_sfm_tpu_torch.ops.kernels.warp import aligned8, warp_plain
 
 # Ambiguity threshold of the exported mask (rs_sfm_tpu/flow/dense.py:431).
 AMB_RATIO = 0.9
+# The prior's tie-break strength (rs_sfm_tpu/flow/dense.py:437).
+PRIOR_W = 0.35
 # Candidate costs the plain version computes at once: bounds its (K, H, W)
 # temporaries.
 _CHUNK_ELEMENTS = 1 << 24
@@ -58,25 +67,38 @@ def box5(x):
     return x
 
 
+def prior_factor(d2, radius: int):
+    """The selection-cost factor 1 + 0.35 d2 / (d2 + max(radius, 1)^2) of
+    a candidate at squared distance d2 from the prior, in the operation
+    order of rs_sfm_tpu/flow/dense.py::_prior_factor."""
+    s2 = float(max(radius, 1)) ** 2
+    return 1.0 + (PRIOR_W * d2) / (d2 + s2)
+
+
 def _scan(cost_chunks, cand_of, shape, dtype, device, *, ratio=0.0,
-          fallback=None):
-    """The (2r+1)^2 scan of rs_sfm_tpu/flow/dense.py::_match_scan without
-    a prior.
+          fallback=None, prior=None, radius=1):
+    """The (2r+1)^2 scan of rs_sfm_tpu/flow/dense.py::_match_scan.
 
     cost_chunks yields (K_c, H, W) raw match costs in candidate order;
-    cand_of(k) gives candidate k's flow (u, v) (planes or numbers).
+    cand_of(k) gives candidate k's flow (u, v) (planes or numbers); prior
+    an optional (H, W, 2) flow that scales the selection costs.
     Returns (best (H, W, 2), second (H, W, 2), ambiguous (H, W) bool).
     """
     inf = torch.full(shape, torch.inf, dtype=dtype, device=device)
     zero = torch.zeros(shape, dtype=dtype, device=device)
-    best_cost, second_cost = inf, inf
+    best_sel, best_cost, second_cost = inf, inf, inf
     best_u = best_v = second_u = second_v = zero
     k = 0
     for costs in cost_chunks:
         for cost in costs:
             cu, cv = cand_of(k)
             k += 1
-            better = cost < best_cost
+            sel = cost
+            if prior is not None:
+                eu = cu - prior[..., 0]
+                ev = cv - prior[..., 1]
+                sel = cost * prior_factor(eu * eu + ev * ev, radius)
+            better = sel < best_sel
             far = torch.maximum(torch.abs(cu - best_u),
                                 torch.abs(cv - best_v)) > 1.5
             to_second = better & far
@@ -89,12 +111,13 @@ def _scan(cost_chunks, cand_of, shape, dtype, device, *, ratio=0.0,
             second_v = torch.where(to_second, best_v,
                                    torch.where(new_second, cv, second_v))
             best_cost = torch.where(better, cost, best_cost)
+            best_sel = torch.where(better, sel, best_sel)
             best_u = torch.where(better, cu, best_u)
             best_v = torch.where(better, cv, best_v)
     best = torch.stack([best_u, best_v], dim=-1)
     second = torch.stack([second_u, second_v], dim=-1)
     amb = best_cost >= AMB_RATIO * second_cost
-    if ratio > 0.0 and fallback is not None:
+    if ratio > 0.0 and fallback is not None and prior is None:
         ok = best_cost < ratio * second_cost
         best = torch.where(ok[..., None], best, fallback)
     return best, second, amb
@@ -105,16 +128,16 @@ def _chunks(n: int, h: int, w: int):
     return [(a, min(n, a + step)) for a in range(0, n, step)]
 
 
-def _check(i1m, i2m, flow, radius, fallback):
+def _check(i1m, i2m, flow, radius, fallback, prior=None):
     if i1m.dim() != 2 or i2m.shape != i1m.shape:
         raise ValueError(f"i1m and i2m must be one (H, W) shape, got "
                          f"{tuple(i1m.shape)} and {tuple(i2m.shape)}")
     field = tuple(i1m.shape) + (2,)
-    for name, t in (("flow", flow), ("fallback", fallback)):
+    named = (("flow", flow), ("fallback", fallback), ("prior", prior))
+    for name, t in named:
         if t is not None and tuple(t.shape) != field:
             raise ValueError(f"{name} must be {field}, got {tuple(t.shape)}")
-    for name, t in (("i1m", i1m), ("i2m", i2m), ("flow", flow),
-                    ("fallback", fallback)):
+    for name, t in (("i1m", i1m), ("i2m", i2m)) + named:
         if t is None:
             continue
         if t.dtype != torch.float32:
@@ -126,9 +149,9 @@ def _check(i1m, i2m, flow, radius, fallback):
 
 
 def match_search_plain(i1m, i2m, flow, radius: int, ratio: float = 0.0,
-                       fallback=None):
+                       fallback=None, prior=None):
     """Plain PyTorch version of `match_search` (same arguments)."""
-    _check(i1m, i2m, flow, radius, fallback)
+    _check(i1m, i2m, flow, radius, fallback, prior)
     h, w = i1m.shape
     offs = candidates(radius)
     if flow is None:
@@ -160,7 +183,7 @@ def match_search_plain(i1m, i2m, flow, radius: int, ratio: float = 0.0,
             return fu + du, fv + dv
 
     return _scan(cost_chunks(), cand_of, (h, w), i1m.dtype, i1m.device,
-                 ratio=ratio, fallback=fallback)
+                 ratio=ratio, fallback=fallback, prior=prior, radius=radius)
 
 
 # csrc/match.cu's MARGIN: pixels of flow variation about a tile's centre
@@ -202,7 +225,7 @@ def _lib():
     lib = _build.load("match")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.match_launch.argtypes = [p, p, p, p, p, p, p, i, i, i,
+        lib.match_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                      ctypes.c_float, i, p]
         lib.match_launch.restype = ctypes.c_int
         lib._typed = True
@@ -210,15 +233,15 @@ def _lib():
 
 
 def match_launch(i1m, i2m, flow, radius: int, ratio: float, fallback,
-                 tile: int):
+                 tile: int, prior=None):
     """One search by csrc/match.cu on tile `tile` (an index into TILES),
     from CUDA tensors; returns (best, second, ambiguous) like
     `match_search`.  Not counted in `match_search.launches`."""
     h, w = i1m.shape
     i1m, i2m = i1m.contiguous(), i2m.contiguous()
-    flow = None if flow is None else aligned8(flow)
-    fallback = None if fallback is None else aligned8(fallback)
-    use_fb = ratio > 0.0 and fallback is not None
+    flow, fallback, prior = (None if t is None else aligned8(t)
+                             for t in (flow, fallback, prior))
+    use_fb = ratio > 0.0 and fallback is not None and prior is None
     dev = i1m.device
     lib = _lib()
     with torch.cuda.device(dev):
@@ -229,14 +252,15 @@ def match_launch(i1m, i2m, flow, radius: int, ratio: float, fallback,
         _build.check(lib.match_launch(
             i1m.data_ptr(), i2m.data_ptr(),
             None if flow is None else flow.data_ptr(),
-            fallback.data_ptr() if use_fb else None, best.data_ptr(),
+            fallback.data_ptr() if use_fb else None,
+            None if prior is None else prior.data_ptr(), best.data_ptr(),
             second.data_ptr(), amb.data_ptr(), h, w, radius,
             float(ratio) if use_fb else 0.0, tile, stream), "match_launch")
     return best, second, amb
 
 
 def match_search(i1m, i2m, flow, radius: int, ratio: float = 0.0,
-                 fallback=None):
+                 fallback=None, prior=None):
     """One discrete search of radius `radius` (see the module docstring).
 
     Args:
@@ -244,9 +268,11 @@ def match_search(i1m, i2m, flow, radius: int, ratio: float = 0.0,
       flow: (H, W, 2) float32 flow around which to search (refine), or
         None for the search over integer shifts (coarse).
       radius: candidates per axis 2 * radius + 1.
-      ratio, fallback: where ratio > 0 and fallback ((H, W, 2)) is given,
-        a pixel whose best cost is not below ratio x the second's takes
-        the fallback's flow.
+      ratio, fallback: where ratio > 0 and fallback ((H, W, 2)) is given
+        and prior is None, a pixel whose best cost is not below ratio x
+        the second's takes the fallback's flow.
+      prior: optional (H, W, 2) float32 flow that scales each candidate's
+        selection cost by its distance (see the module docstring).
 
     Returns (best (H, W, 2), second (H, W, 2), ambiguous (H, W) bool):
     the best candidate, the best one more than 1.5 px (max-norm) from it,
@@ -255,14 +281,16 @@ def match_search(i1m, i2m, flow, radius: int, ratio: float = 0.0,
     On CUDA tensors this launches the kernel of csrc/match.cu (counted in
     `match_search.launches`); on CPU tensors it runs `match_search_plain`.
     """
-    _check(i1m, i2m, flow, radius, fallback)
+    _check(i1m, i2m, flow, radius, fallback, prior)
     if i1m.device.type == "cpu":
-        return match_search_plain(i1m, i2m, flow, radius, ratio, fallback)
+        return match_search_plain(i1m, i2m, flow, radius, ratio, fallback,
+                                  prior)
     if i1m.device.type != "cuda":
         raise ValueError(f"unsupported device {i1m.device}")
     h, w = i1m.shape
     out = match_launch(i1m, i2m, flow, radius, ratio, fallback,
-                       tile_plan(h, w, radius, card_limits(i1m.device)))
+                       tile_plan(h, w, radius, card_limits(i1m.device)),
+                       prior)
     match_search.launches += 1
     return out
 

@@ -306,18 +306,8 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
     v = v * sign
     z = z * sign
 
-    depth_sel = inlier_mask
-    if cfg.depth_residual_px > 0.0:
-        # Tight-consensus depth export: keep only inliers whose flow the
-        # final model fits within depth_residual_px pixels.
-        u_fin = predict_flow(coords, rho, v * sign, w, k, alpha, alpha_k)
-        fmean = torch.sqrt(torch.tensor(intr.fx * intr.fy,
-                                        dtype=coords.dtype,
-                                        device=coords.device))
-        diff = u_fin - flow_n
-        resid_px = torch.sqrt(torch.sum(diff * diff, dim=-1)) * fmean
-        depth_sel = depth_sel & (resid_px <= cfg.depth_residual_px)
-
+    depth_sel = depth_export_mask(prepared, rho, v * sign, w, k, inlier_mask,
+                                  intr, cfg)
     depth_map = torch.where(depth_sel, z, torch.zeros_like(z)).reshape(
         h, w_cols)
     return EstimationResult(
@@ -331,17 +321,40 @@ def estimate_from_flow(flow_px, intr: Intrinsics, gamma, cfg: PipelineConfig,
         top_k=torch.cat([k[None], cand_k]))
 
 
-def pass_generator(generator: Optional[torch.Generator], p: int):
-    """The generator of feedback pass p (0-based) under
-    feedback_mode="full": a new generator on `generator`'s device seeded
-    with generator.initial_seed() * 1,000,003 + 101 + p (mod 2^63), the
-    port's counterpart of the JAX package's fold_in(key, 101 + p).  It
-    depends on the caller's seed only, not on how far that generator has
-    been drawn.  None (the global generator) stays None."""
+def depth_export_mask(prepared, rho, v, w, k, inlier, intr: Intrinsics,
+                      cfg: PipelineConfig):
+    """The pixels whose depth the estimation exports: the inliers, and with
+    cfg.depth_residual_px > 0 only those whose flow the model (v, w, k)
+    fits within that many pixels at the closed-form ρ (tight-consensus
+    export).  prepared: prepare_flow_inputs' result."""
+    if cfg.depth_residual_px <= 0.0:
+        return inlier
+    coords, flow_n, alpha, alpha_k, _ = prepared
+    u_fin = predict_flow(coords, rho, v, w, k, alpha, alpha_k)
+    fmean = torch.sqrt(torch.tensor(intr.fx * intr.fy, dtype=coords.dtype,
+                                    device=coords.device))
+    diff = u_fin - flow_n
+    resid_px = torch.sqrt(torch.sum(diff * diff, dim=-1)) * fmean
+    return inlier & (resid_px <= cfg.depth_residual_px)
+
+
+def fold_generator(generator: Optional[torch.Generator], data: int):
+    """A new generator on `generator`'s device seeded with
+    generator.initial_seed() * 1,000,003 + data (mod 2^63): the port's
+    counterpart of the JAX package's fold_in(key, data).  It depends on the
+    caller's seed only, not on how far that generator has been drawn.  None
+    (the global generator) stays None."""
     if generator is None:
         return None
-    seed = (generator.initial_seed() * 1_000_003 + 101 + p) % (1 << 63)
+    seed = (generator.initial_seed() * 1_000_003 + data) % (1 << 63)
     return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def pass_generator(generator: Optional[torch.Generator], p: int):
+    """The generator of feedback pass p (0-based) under
+    feedback_mode="full": fold_generator(generator, 101 + p), as the JAX
+    package draws pass p with fold_in(key, 101 + p)."""
+    return fold_generator(generator, 101 + p)
 
 
 def estimate_with_feedback(flow_px, intr: Intrinsics, gamma,

@@ -11,9 +11,14 @@ tests, so their compile CPU lengthens the whole run.
 import jax
 
 
+def compile_level0(fn, *args):
+    """fn jitted and compiled at XLA's backend optimization level 0 for
+    args' shapes (args are arrays; close over the static arguments)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
 def run_jitted(fn, *args):
     """fn(*args), jitted and compiled at XLA's backend optimization level
     0 (args are arrays; close over the static arguments)."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
-    return compiled(*args)
+    return compile_level0(fn, *args)(*args)

@@ -25,7 +25,10 @@ to B3 itself bit for bit: both run the same sweep, reduction and decide
 code.  B8 (the z-buffer splat) is bit-exact: integer keys and a colour
 copy.  B4's discrete search (csrc/match.cu) is bit-exact on every tile: the
 warp's IEEE operations without FMA contraction, the box's adds and the scan
-in the plain version's order.  RANSAC takes its draws on the card.
+in the plain version's order, with a prior too (the selection cost's
+factor without contraction).  The camera-pipeline nuisances agree with the
+CPU to 1e-6 (elementwise operations; the DCT has no matmul).  RANSAC takes
+its draws on the card.
 """
 
 import numpy as np
@@ -624,6 +627,77 @@ def test_match_kernel_matches_plain(cuda_device, shape, radius, refine,
         torch.cuda.synchronize()
         for g, r in zip(res, ref):
             assert _same_bits(g, r), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smooth", "ties"])
+@pytest.mark.parametrize("shape,radius,refine", SEARCHES)
+def test_match_kernel_with_a_prior_matches_plain(cuda_device, shape, radius,
+                                                 refine, kind):
+    """The search with a prior (the relock pass's tie-break) at every e2e
+    search shape: a smooth random prior, and a prior at the lock 3 px
+    right of the prior-free pick, where the planes' periodic half ties
+    candidates exactly.  Bit-exact to the plain version through the wrapper
+    and on every tile, from a prior laid out as planes too; a ratio and
+    fallback given beside the prior change nothing (skipped)."""
+    h, w = shape
+    i1m, i2m, flow = (a.to(cuda_device) for a in _search_inputs(h, w, h))
+    base = flow if refine else None
+    if kind == "smooth":
+        rng = np.random.default_rng(w)
+        prior = torch.from_numpy(rng.uniform(-1.0, 1.0, (h, w, 2)).astype(
+            np.float32)).to(cuda_device)
+        prior = torch.nn.functional.avg_pool2d(
+            prior.permute(2, 0, 1)[None], 5, 1, 2)[0].permute(1, 2, 0)
+        prior = prior * 3.0 + (flow if refine else 0.0)
+    else:
+        free = tmatch.match_search_plain(i1m, i2m, base, radius)
+        prior = free[0] + torch.tensor([3.0, 0.0], device=cuda_device)
+    args = (i1m, i2m, base, radius)
+    ref = tmatch.match_search_plain(*args, prior=prior)
+    assert 0 < int(ref[2].sum()) < h * w
+    before = tmatch.match_search.launches
+    got = tmatch.match_search(*args, prior=prior)
+    torch.cuda.synchronize()
+    assert tmatch.match_search.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _same_bits(g, r)
+    planar = prior.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    fb = flow if refine else torch.zeros_like(flow)
+    got = tmatch.match_search(*args, 0.8, fb, planar)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    limits = tsor.card_limits(cuda_device)
+    for tile in range(len(tmatch.TILES)):
+        if tmatch.smem_bytes(tile, radius) > limits[1]:
+            continue
+        res = tmatch.match_launch(*args, 0.0, None, tile, prior)
+        torch.cuda.synchronize()
+        for g, r in zip(res, ref):
+            assert _same_bits(g, r), tile
+    # The prior moved picks.
+    free = tmatch.match_search(*args)
+    assert not torch.equal(free[0], got[0])
+
+
+@pytest.mark.cuda
+def test_camera_pipeline_nuisances_on_the_card_match_cpu(cuda_device):
+    """apply_photometric with every camera-pipeline stage (the pseudo-real
+    gate's frame 2) on the card against the CPU, float32, the same noise:
+    the DCT is elementwise products and sums (no matmul), so the JPEG
+    coefficients round alike and the frames agree to a few ulp."""
+    from rs_sfm_tpu_torch.data.synthetic import apply_photometric
+
+    img = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.0, 1.0, (67, 93, 3)).astype(np.float32))
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(67, 93, 3)).astype(np.float32))
+    opts = dict(exposure=1.25, vignette=0.25, noise_sigma=0.004,
+                motion_blur_px=3.0, blur=True, demosaic=True,
+                jpeg_quality=82)
+    ref = apply_photometric(img, noise=noise, **opts)
+    got = apply_photometric(img.to(cuda_device),
+                            noise=noise.to(cuda_device), **opts)
+    assert float(torch.abs(got.cpu() - ref).max()) <= 1e-6
 
 
 @pytest.mark.cuda

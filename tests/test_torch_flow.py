@@ -248,8 +248,7 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
 
 
 @pytest.mark.parametrize("change", [
-    dict(census_weight=1.0), dict(refine_shifted=True),
-    dict(anchor_ambiguous=True)])
+    dict(census_weight=1.0), dict(refine_shifted=True)])
 def test_unported_flow_options_raise(change):
     i1, i2 = _smooth_pair(32, 48)
     cfg = tdense.DenseFlowConfig(**change)
@@ -257,12 +256,7 @@ def test_unported_flow_options_raise(change):
         tdense.dense_flow(torch.from_numpy(i1), torch.from_numpy(i2), cfg)
 
 
-def test_prior_and_auto_preset_raise():
-    i1, i2 = _smooth_pair(32, 48)
-    with pytest.raises(NotImplementedError):
-        tdense.flow_forward_backward(torch.from_numpy(i1),
-                                     torch.from_numpy(i2),
-                                     prior=torch.zeros(32, 48, 2))
+def test_auto_preset_needs_the_pair():
     # "auto" needs the pair (models.resolve_flow_preset), as in JAX.
     with pytest.raises(KeyError, match="resolve_flow_preset"):
         get_flow_preset("auto")

@@ -12,7 +12,10 @@
     (exact refine, XLA warp) at 34x60: the ambiguity masks equal, the
     median-cleaned and second-best flows equal except where JAX's costs of
     the two candidates lie within 4 ulp (XLA contracts the warp's blend
-    into fused multiply-adds, the port rounds each operation).
+    into fused multiply-adds, the port rounds each operation); the same
+    with a prior (the relock pass's tie-break), the selection costs taking
+    the raw costs' place, and the ratio fallback skipped;
+  * a prior at one of several exactly tied locks takes it.
 """
 
 import numpy as np
@@ -365,3 +368,135 @@ def test_search_matches_jax(mode):
     assert flipped.mean() <= 0.02 and s_diff.mean() <= 0.02, (
         flipped.mean(), s_diff.mean())
     assert 0 < amb_t.sum() < h * w or mode == "refine"
+
+
+def _smooth_prior(h, w, centre, spread, seed):
+    """An (h, w, 2) float32 flow: `centre` plus a smooth random field of
+    about +-spread px."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(-spread, spread, (h + 8, w + 8, 2))
+    for ax in (0, 1):
+        for _ in range(3):
+            f = (np.roll(f, 1, ax) + 2 * f + np.roll(f, -1, ax)) / 4
+    f = f[4:4 + h, 4:4 + w] * 2.0
+    return (np.asarray(centre, np.float32) + f).astype(np.float32)
+
+
+def _selection(costs, base_flow, prior, radius):
+    """JAX's selection costs (dense.py::_match_scan with a prior) of every
+    candidate, formed in float32 from its raw costs in the operation order
+    of dense.py::_prior_factor."""
+    offs = np.asarray(tmatch.candidates(radius), np.float32)
+    cand = base_flow[None] + offs[:, None, None, :]
+    diff = (cand - prior[None]).astype(np.float32)
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    s2 = np.float32(max(radius, 1) ** 2)
+    factor = np.float32(1.0) + (np.float32(0.35) * d2) / (d2 + s2)
+    return (costs * factor).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["coarse", "refine"])
+def test_prior_search_matches_jax(mode):
+    """`_coarse_init` and `_discrete_refine` with a prior against the JAX
+    package's at 34x60 (exact refine, XLA warp): the ambiguity masks equal
+    (raw costs), the picks equal except where JAX's selection costs of the
+    two candidates lie within 4 ulp (as without a prior: XLA contracts the
+    warp's blend into fused multiply-adds), the median-cleaned flows
+    equal except next to such a pick, the ratio fallback skipped."""
+    h, w = 34, 60
+    rng = np.random.default_rng(8)
+    base = rng.uniform(0.1, 0.9, (h + 12, w + 12)).astype(np.float32)
+    for ax in (0, 1):
+        base = ((np.roll(base, 1, ax) + 2 * base + np.roll(base, -1, ax))
+                / 4).astype(np.float32)
+    i1 = base[6:6 + h, 6:6 + w].copy()
+    i2 = base[5:5 + h, 8:8 + w].copy()
+    cfg_t = tdense.DenseFlowConfig(match_ratio=0.8)
+    cfg_j = jdense.DenseFlowConfig(refine_shifted=False, warp_engine="xla",
+                                   sor_engine="xla", match_ratio=0.8)
+    i1m, i2m = (np.array(a) for a in jdense._match_planes(
+        jnp.asarray(i1), jnp.asarray(i2), cfg_j))
+    if mode == "coarse":
+        radius, flow = 8, None
+        base_flow = np.zeros((h, w, 2), np.float32)
+        prior = _smooth_prior(h, w, (2.0, -1.0), 3.0, seed=1)
+        rj = jdense._coarse_init(jnp.asarray(i1), jnp.asarray(i2), radius,
+                                 cfg_j, prior=jnp.asarray(prior))
+        rt = tdense._coarse_init(torch.from_numpy(i1), torch.from_numpy(i2),
+                                 radius, cfg_t, torch.from_numpy(prior))
+    else:
+        radius = 4
+        flow = (np.float32([2.0, -1.0]) + rng.uniform(
+            -1.5, 1.5, (h, w, 2))).astype(np.float32)
+        base_flow = flow
+        prior = _smooth_prior(h, w, (2.0, -1.0), 2.0, seed=2)
+        rj = jdense._discrete_refine(jnp.asarray(i1), jnp.asarray(i2),
+                                     jnp.asarray(flow), radius, cfg_j,
+                                     prior=jnp.asarray(prior))
+        rt = tdense._discrete_refine(torch.from_numpy(i1),
+                                     torch.from_numpy(i2),
+                                     torch.from_numpy(flow), radius, cfg_t,
+                                     torch.from_numpy(prior))
+    flow_j, _, amb_j = (np.asarray(a) for a in rj)
+    flow_t, _, amb_t = (a.numpy() for a in rt)
+    np.testing.assert_array_equal(amb_t, amb_j)
+
+    offs = jnp.asarray(tmatch.candidates(radius), jnp.float32)
+
+    def cost(d):
+        if flow is None:
+            padded = jnp.pad(jnp.asarray(i2m), radius, mode="edge")
+            shifted = jax.lax.dynamic_slice(
+                padded, (d[1].astype(int) + radius, d[0].astype(int) + radius),
+                (h, w))
+        else:
+            shifted = jdense._warp(jnp.asarray(i2m), jnp.asarray(flow) + d)
+        return jdense._box5((shifted - jnp.asarray(i1m)) ** 2)
+
+    sel = _selection(np.asarray(jax.jit(jax.vmap(cost))(offs)), base_flow,
+                     prior, radius)
+    args = (torch.from_numpy(i1m), torch.from_numpy(i2m),
+            None if flow is None else torch.from_numpy(flow), radius)
+    raw_t = tmatch.match_search_plain(*args, prior=torch.from_numpy(prior))
+    # With a prior the ratio fallback is skipped.
+    fb = torch.zeros((h, w, 2)) if flow is None else torch.from_numpy(flow)
+    for a, b in zip(tmatch.match_search_plain(
+            *args, 0.8, fb, prior=torch.from_numpy(prior)), raw_t):
+        assert torch.equal(a, b)
+    k_t = _cand_index(raw_t[0].numpy(), base_flow, radius)
+    k_j = np.argmin(sel, axis=0)
+    yy, xx = np.indices((h, w))
+    flipped = k_t != k_j
+    assert np.all(_ulps(sel[k_t, yy, xx], sel[k_j, yy, xx])[flipped] <= 4)
+    assert not np.any(np.any(flow_t != flow_j, axis=-1)
+                      & ~_near_3x3(flipped))
+    assert flipped.mean() <= 0.02
+    # The prior changed picks: it is not the prior-free search.
+    free = tmatch.match_search_plain(*args)
+    assert np.any(free[0].numpy() != raw_t[0].numpy())
+
+
+def test_prior_breaks_exact_ties():
+    """On the periodic half of the planes candidates 3 px apart tie
+    exactly; a prior at the tied lock 3 px right of the prior-free pick
+    takes it (its factor is 1, every other candidate's above)."""
+    h, w = 34, 60
+    radius = 8
+    i1m, i2m = _planes(h, w, seed=4, periodic=True)
+    free = tmatch.match_search_plain(i1m, i2m, None, radius)
+    prior = free[0] + torch.tensor([3.0, 0.0])
+    got = tmatch.match_search_plain(i1m, i2m, None, radius, prior=prior)
+    costs = tmatch.box5(_d2(i1m, i2m, None, radius))
+    yy, xx = np.indices((h, w))
+    k_free = _cand_index(free[0].numpy(), np.zeros((h, w, 2)), radius)
+    k_prior = k_free + 3
+    inside = (free[0][..., 0] + 3 <= radius).numpy()
+    tie = inside.copy()
+    tie[inside] = (costs.numpy()[k_prior[inside], yy[inside], xx[inside]]
+                   == costs.numpy()[k_free[inside], yy[inside], xx[inside]])
+    tie = torch.from_numpy(tie)
+    assert int(tie.sum()) > 50
+    assert torch.equal(got[0][tie], prior[tie])
+    # A prior at the prior-free picks keeps them.
+    same = tmatch.match_search_plain(i1m, i2m, None, radius, prior=free[0])
+    assert torch.equal(same[0], free[0])

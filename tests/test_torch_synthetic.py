@@ -11,7 +11,10 @@ package on the CPU in float64.
   * `true_flow` (with and without the sub-scanline step) and
     `true_depth_from_unprojection` on that render, within 1e-9;
   * `apply_photometric` with the JAX package's normal draws injected,
-    within 1e-12;
+    within 1e-12: exposure, tone curve, vignette and noise, and the camera
+    pipeline's blur, motion streak, JPEG quantization and demosaic (every
+    case's JAX reference from one jitted function);
+  * the repetitive-texture castle's render, colour within 1e-6;
   * `gauss_inv`, `beta2` and `relocate_poses` within 1e-12.
 """
 
@@ -143,27 +146,65 @@ def test_true_depth_matches_jax(pairs):
     np.testing.assert_array_equal(got > 0, ref > 0)
 
 
-@pytest.mark.parametrize("opts", [
+PHOTOMETRIC_CASES = [
     dict(exposure=1.35, vignette=0.35, noise_sigma=0.005),
     dict(exposure=0.8, gamma_curve=1.4),
     dict(exposure=1.1, gamma_curve=0.7, vignette=0.2, noise_sigma=0.02),
-])
-def test_apply_photometric_matches_jax(opts):
-    rng = np.random.default_rng(2)
-    image = rng.uniform(0.0, 1.0, (24, 36, 3))
+    dict(blur=True),
+    dict(motion_blur_px=3.0, motion_blur_dir=(-0.4, 1.0)),
+    dict(jpeg_quality=30),
+    # tests/test_real_ingestion.py's frame 2: every stage in one pass.
+    dict(exposure=1.25, vignette=0.25, noise_sigma=0.004, motion_blur_px=3.0,
+         demosaic=True, jpeg_quality=82),
+]
+
+
+@pytest.fixture(scope="module")
+def photometric_refs():
+    """The JAX package's apply_photometric of every case on one image
+    (27x38: JPEG pads both axes) in float64, one jitted function, and its
+    normal draws."""
+    image = np.random.default_rng(2).uniform(0.0, 1.0, (27, 38, 3))
     key = jax.random.PRNGKey(1)
-    ref = np.asarray(jsyn.apply_photometric(jnp.asarray(image), key, **opts))
+    refs = jax.jit(lambda img: [jsyn.apply_photometric(img, key, **opts)
+                                for opts in PHOTOMETRIC_CASES])(
+        jnp.asarray(image))
     noise = np.array(jax.random.normal(key, image.shape, jnp.float64))
+    return image, noise, [np.asarray(r) for r in refs]
+
+
+@pytest.mark.parametrize("opts", PHOTOMETRIC_CASES)
+def test_apply_photometric_matches_jax(photometric_refs, opts):
+    image, noise, refs = photometric_refs
+    ref = refs[PHOTOMETRIC_CASES.index(opts)]
     got = tsyn.apply_photometric(torch.from_numpy(image),
                                  noise=torch.from_numpy(noise), **opts)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
+    assert float(np.abs(ref - image).max()) > 1e-3
 
 
-@pytest.mark.parametrize("opts", [dict(blur=True), dict(motion_blur_px=3.0),
-                                  dict(jpeg_quality=50), dict(demosaic=True)])
-def test_apply_photometric_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError):
-        tsyn.apply_photometric(torch.zeros((4, 4, 3)), **opts)
+def test_repetitive_scene_matches_jax():
+    """repetitive_scene's periodic walls beside the noise-textured ground
+    and roof, rendered at 40x64 in float64: colour within COLOR_ATOL."""
+    scene = jsyn.repetitive_scene(dtype=jnp.float64)
+    intr = tsyn.default_intrinsics(H, W)
+    jp = jsyn.render_pair(scene, jsyn.default_intrinsics(H, W), H, W,
+                          gamma=GAMMA, k=0.0, v=V, w=WV, dtype=jnp.float64)
+    tscene = tsyn.repetitive_scene(torch.float64, "cpu")
+    np.testing.assert_array_equal(tscene.periodic.numpy(),
+                                  np.asarray(scene.periodic))
+    tp = tsyn.render_pair(tscene, intr, H, W, gamma=GAMMA, k=0.0, v=V, w=WV,
+                          dtype=torch.float64)
+    for frame in ("frame1", "frame2"):
+        np.testing.assert_allclose(
+            getattr(tp, frame).rs_image.numpy(),
+            np.asarray(getattr(jp, frame).rs_image), rtol=0, atol=COLOR_ATOL)
+    # The periodic texture differs from the castle's noise texture.
+    castle = tsyn.render_pair(tsyn.castle_scene(torch.float64, "cpu"), intr,
+                              H, W, gamma=GAMMA, k=0.0, v=V, w=WV,
+                              dtype=torch.float64)
+    assert float(torch.abs(castle.frame1.rs_image
+                           - tp.frame1.rs_image).max()) > 0.1
 
 
 def test_gauss_inv_matches_jax():
