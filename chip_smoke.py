@@ -10,8 +10,9 @@ Schur-LM -> rectification) in both slice configurations, the estimation
 sharded over two ranks, every rectification engine, the STRESS.md protocol
 on its four full-HD scenes, the command-line interface, the
 acceleration model (k) on the castle, the relock pass, the pseudo-real
-gate through the camera-pipeline nuisances and the video entry points,
-through the
+gate through the camera-pipeline nuisances, the video entry points and
+the A10 flow options (the census data term, the shifted refine), through
+the
 hand-written CUDA kernels of rs_sfm_tpu_torch/csrc; holds each kernel and
 each path against their plain PyTorch versions.
 
@@ -157,6 +158,25 @@ and the script exits non-zero; nothing is caught and continued):
               resume after window 1's file is lost estimates window 1 alone,
               one with every window saved estimates nothing, and both equal
               the first run
+  [15 a10]    the A10 flow options: (a) B5 with the census term (24 more
+              planes) at every level of the e2e pyramid (phase 3's SOR
+              inputs and the census planes of the same warp), the census
+              planes read from global memory on the plan without census,
+              bit-exact to plain, ms, plans, launches, bound; (b) B4's
+              search in its shifted mode at 17x30, 34x60 and 68x120,
+              radius 4, with and without a prior, bit-exact to plain on
+              every tile, ms beside the exact refine's; (c)
+              tests/test_stress.py's census gates (mean EPE over
+              unoccluded pixels: census < 0.7 x without, < 1.0 px) on its
+              own 128x128 scene rendered on the card, and the ratio on
+              phase 6b's full-HD photometric castle (exposure 1.35,
+              vignette 0.35, noise 0.005; its EPE printed, see
+              CENSUS_GATES), each flow's launches asserted, then cli.main
+              single-run --flow-model census --occlusion-mask on a full-HD
+              castle pair with those nuisances as 8-bit PNGs (err_v, not
+              gated); (d) the clean castle through E2E_FLOW_PRESET with
+              refine_shifted and E2E_CONFIG at phase 6b's clean gates, its
+              launches asserted (every refine search shifted)
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -219,6 +239,14 @@ OPS_SOR = 92
 OPS_MEDIAN = 38
 OPS_MATCH_REFINE = 51
 OPS_MATCH_COARSE = 27
+# The shifted refine reads as the coarse search does and adds the flow to
+# each candidate (1).
+OPS_MATCH_SHIFTED = 28
+# The census term per pixel and sweep (sor.cu): per channel the residual
+# (4), its square and eps (2), root, reciprocal and weight (3), the two
+# weighted gradients (2), five products and five sums (10, channel 0
+# without the sums), then the five additions to the system.
+OPS_SOR_CENSUS = 8 * 21 - 5 + 5
 # With a prior, per (candidate, pixel): the distance's 2 subtractions, 2
 # multiplies and add, the factor's multiply, add, divide and add, and the
 # selection cost's multiply.
@@ -325,6 +353,26 @@ NUISANCES = {"blur": dict(blur=True), "motion_blur": dict(motion_blur_px=3.0),
              "demosaic": dict(demosaic=True),
              "jpeg": dict(jpeg_quality=82)}
 NUISANCE_ATOL = 1e-6
+# The A10 flow options (phase 15).  The shifted refine's searches: the e2e
+# pass's 34x60 and 68x120 refines and its 17x30 level (searched there by
+# the coarse search), radius 4.
+SHIFTED_SEARCHES = ((17, 30), (34, 60), (68, 120))
+# tests/test_stress.py::test_census_handles_exposure_and_vignette: its
+# scene (the castle at 128x128, gamma 0.9, its v and w; frame 2 with
+# eval.gate.PHOTOMETRIC's exposure 1.35, vignette 0.35 and noise 0.005)
+# and its gates on the mean EPE over the unoccluded pixels of
+# flow_forward_backward with DenseFlowConfig(): census_weight 1.0 below
+# 0.7 x the flow without census, and below 1.0 px.  Both gate that scene;
+# on the full-HD photometric castle (the castle gate's motion, flows about
+# 15x the 128x128 scene's) the ratio is gated and the EPE printed beside
+# 1.0 px: the mean over unoccluded pixels grows with the flow's scale
+# (7.52 px with census, 22.65 without, on an H100), and at full HD the JAX
+# package's own flows are far above 1.0 px too: STRESS.md's raw
+# unoccluded means are 3.08 px for the clean castle with the plain
+# (production) preset and 8.94 px for the stress scene with census.
+CENSUS_TEST_SCENE = dict(size=128, v=(0.12, -0.05, 0.08),
+                         w=(0.003, -0.002, 0.004))
+CENSUS_GATES = {"ratio": 0.7, "epe": 1.0}
 
 KERNELS = {  # name: (csrc source, TPU kernel it replaces)
     "score_hypotheses": ("score", "score.py:85"),
@@ -450,6 +498,8 @@ def reset_counts():
     wrap = wrappers()
     for fn in wrap.values():
         fn.launches = 0
+    wrap["sor_sweeps"].census_launches = 0
+    wrap["match_search"].shifted_launches = 0
     return wrap
 
 
@@ -474,9 +524,11 @@ def _dense_launches(cfg, h, w, limits):
                           and min(hh, ww) <= cfg.refine_max_size)
                       else cfg.refine_fine_radius)
             if radius > 0:
-                # The warp-local search, then its median clean-up.
+                # The warp-local search (the shifted refine warps I2 once
+                # first), then its median clean-up.
                 search += 1
                 med += 1
+                warp += cfg.refine_shifted
         finest = lvl == 0
         warps = (cfg.warps if finest or cfg.warps_coarse <= 0
                  else cfg.warps_coarse)
@@ -952,14 +1004,16 @@ def e2e_searches(i1, i2):
     calls = []
     search = km.match_search
 
-    def recorded(*args):
-        # (i1m, i2m, flow, radius, ratio, fallback); the pass has no prior.
+    def recorded(*args, shifted=False):
+        # (i1m, i2m, flow, radius, ratio, fallback); the pass has no prior
+        # and searches in the exact modes.
         check(len(args) < 7 or args[6] is None, "the e2e pass has no prior")
+        check(not shifted, "the e2e pass has no shifted search")
         calls.append(args[:6])
-        return search(*args)
+        return search(*args, shifted=shifted)
 
     # The wrapper counts on the module's match_search, this one meanwhile.
-    recorded.launches = 0
+    recorded.launches = recorded.shifted_launches = 0
     km.match_search = recorded
     try:
         flow_forward_backward(i1, i2, E2E_FLOW_PRESET)
@@ -3174,6 +3228,331 @@ def phase_video(dev, castle):
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+def check_census_sor(i1, i2):
+    """B5 with the census term at each level of the e2e pyramid: phase 3's
+    SOR inputs (the full-HD planes linearised around the preset's flow)
+    with the census planes of the same warp, subsampled to each level's
+    shape; the wrapper (csrc/sor.cu on the plan without census, the census
+    planes read from global memory) bit-exact to the plain version, with
+    its launches, and timed beside the call without census.  Returns the
+    full-HD level's record with every level's timings."""
+    import torch
+
+    from rs_sfm_tpu_torch.config import E2E_FLOW_PRESET as fc
+    from rs_sfm_tpu_torch.flow.dense import _census_channels, census_planes
+    from rs_sfm_tpu_torch.ops.kernels import sor as ks
+    from rs_sfm_tpu_torch.ops.kernels.warp import warp_plain
+
+    coef, u0, v0, prm = sor_inputs(i1, i2)
+    f0 = torch.stack([u0, v0], dim=-1)
+    census = census_planes(_census_channels(i1, fc.census_sigma),
+                           warp_plain(i2, f0), f0,
+                           fc.census_sigma).contiguous()
+    cprm = dict(prm, census_weight=1.0)
+    limits = ks.card_limits(u0.device)
+    levels, full = [], None
+    for step in (1, 2, 4, 8, 16, 32, 64):
+        c = coef[:, ::step, ::step].contiguous()
+        cen = census[:, ::step, ::step].contiguous()
+        u, v = u0[::step, ::step].contiguous(), v0[::step, ::step].contiguous()
+        h, w = u.shape
+        up, vp = ks.sor_sweeps_plain(c, u, v, census=cen, **cprm)
+        before = ks.sor_sweeps.census_launches
+        uk, vk = ks.sor_sweeps(c, u, v, census=cen, **cprm)
+        torch.cuda.synchronize()
+        launches = ks.sor_sweeps.census_launches - before
+        check(launches == ks.launches_per_call(h, w, prm["iters"], limits),
+              f"B5 census {h}x{w}: {launches} launches")
+        check(torch.equal(uk, up) and torch.equal(vk, vp),
+              f"B5 census {h}x{w} bit-exact to plain")
+        check(not torch.equal(up, ks.sor_sweeps_plain(c, u, v, **prm)[0]),
+              f"B5 census {h}x{w}: the census term moved the solve")
+        n = h * w
+        b_ms, b_by = bound(4 * (8 + ks.CENSUS_PLANES + 2 + 2) * n,
+                           (OPS_SOR + OPS_SOR_CENSUS) * n * prm["iters"])
+        plan = ks.tile_plan(h, w, prm["iters"], limits)
+        row = {"shape": [h, w], "bound_ms": b_ms, "bound_by": b_by,
+               "plan": list(plan), "launches": launches,
+               "ms": time_ms(lambda: ks.sor_sweeps(c, u, v, census=cen,
+                                                   **cprm)),
+               "ms_without_census": time_ms(lambda: ks.sor_sweeps(
+                   c, u, v, **prm))}
+        print(f"[15 a10] (a) B5 census {h}x{w}, {prm['iters']} sweeps: "
+              f"bit-exact to plain; {plan[0]}x{plan[1]} K={plan[3]} "
+              f"{row['ms']:.4f} ms ({launches}); without census "
+              f"{row['ms_without_census']:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        if full is None:
+            full = record(
+                max(float(torch.max(torch.abs(uk - up))),
+                    float(torch.max(torch.abs(vk - vp)))),
+                row["ms"],
+                time_ms(lambda: ks.sor_sweeps_plain(c, u, v, census=cen,
+                                                    **cprm), runs=3,
+                        warmup=1),
+                4 * (8 + ks.CENSUS_PLANES + 2 + 2) * n,
+                (OPS_SOR + OPS_SOR_CENSUS) * n * prm["iters"])
+            full.update(shape=[h, w], launches_per_call=launches)
+            print(f"[15 a10] (a) B5 census {h}x{w} through the wrapper: "
+                  f"{full['ms']:.3f} ms vs plain {full['plain_ms']:.1f} ms, "
+                  f"bound {full['bound_ms']:.4f} ms ({full['bound_by']}), "
+                  f"{launches} launches a call", flush=True)
+        levels.append(row)
+    full["levels"] = levels
+    return full
+
+
+def check_shifted_searches(i1, i2):
+    """B4's search in its shifted mode at SHIFTED_SEARCHES, radius 4:
+    frame 2's matching plane warped once by the flow (B4's warp), then the
+    search, with and without a prior (a smooth random field 3 px about the
+    flow), bit-exact to the plain version through the wrapper and on every
+    tile; ms beside the exact refine's on the same flow.  The flows are the
+    e2e pass's at 34x60 and 68x120 and a smooth random field (3 px) at
+    17x30, which the pass searches coarsely."""
+    import torch
+
+    from rs_sfm_tpu_torch.ops.kernels import match as km
+    from rs_sfm_tpu_torch.ops.kernels import warp as kw
+
+    calls = {}
+    for args in e2e_searches(i1, i2):
+        # A refine's planes and flow where the pass refines at the shape.
+        key = tuple(args[0].shape)
+        if key not in calls or calls[key][2] is None:
+            calls[key] = args
+    limits = km.card_limits(i1.device)
+    rows = []
+    for h, w in SHIFTED_SEARCHES:
+        check((h, w) in calls, f"the e2e pass searches {h}x{w}")
+        i1m, i2m, flow = calls[(h, w)][:3]
+        dev = i1m.device
+        if flow is None:
+            flow = _smooth_field(h, w, dev, h, 3.0)
+        warped = kw.warp(i2m, flow)
+        prior = _smooth_field(h, w, dev, w, 3.0) + flow
+        for name, pr in (("without a prior", None), ("with a prior", prior)):
+            args = (i1m, warped, flow, 4, 0.0, None, pr)
+            ref = km.match_search_plain(*args, shifted=True)
+            before = km.match_search.shifted_launches
+            got = km.match_search(*args, shifted=True)
+            torch.cuda.synchronize()
+            check(km.match_search.shifted_launches == before + 1,
+                  f"match_search {h}x{w} shifted: one launch")
+            check(all(same_bits(g, r) for g, r in zip(got, ref)),
+                  f"match_search {h}x{w} shifted {name} bit-exact")
+            for tile in range(len(km.TILES)):
+                if km.smem_bytes(tile, 4) > limits[1]:
+                    continue
+                res = km.match_launch(*args[:6], tile, pr, shifted=True)
+                torch.cuda.synchronize()
+                check(all(same_bits(g, r) for g, r in zip(res, ref)),
+                      f"match_search {h}x{w} shifted {name} tile {tile}")
+        n, k = h * w, 81
+        ms = time_ms(lambda: km.match_search(i1m, warped, flow, 4,
+                                             shifted=True))
+        ms_prior = time_ms(lambda: km.match_search(
+            i1m, warped, flow, 4, prior=prior, shifted=True))
+        ms_exact = time_ms(lambda: km.match_search(i1m, i2m, flow, 4))
+        ms_warp = time_ms(lambda: kw.warp(i2m, flow))
+        plain_ms = time_ms(lambda: km.match_search_plain(
+            i1m, warped, flow, 4, shifted=True), runs=5, warmup=1)
+        b_ms, b_by = bound(n * (4 + 4 + 8 + 8 + 8 + 1),
+                           OPS_MATCH_SHIFTED * k * n)
+        bp_ms, _ = bound(n * (4 + 4 + 8 + 8 + 8 + 8 + 1),
+                         (OPS_MATCH_SHIFTED + OPS_MATCH_PRIOR) * k * n)
+        rows.append({"shape": [h, w], "candidates": k, "ms": ms,
+                     "ms_with_prior": ms_prior, "ms_exact_refine": ms_exact,
+                     "ms_warp": ms_warp, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_ms_with_prior": bp_ms})
+        print(f"[15 a10] (b) B4 match_search {h}x{w} shifted K={k}: "
+              f"bit-exact to plain with and without a prior, every tile; "
+              f"{ms:.4f} ms (with a prior {ms_prior:.4f}) + its warp "
+              f"{ms_warp:.4f} ms vs the exact refine {ms_exact:.4f} ms; "
+              f"plain {plain_ms:.2f} ms; bound {b_ms:.6f} ms ({b_by}), with "
+              f"a prior {bp_ms:.6f}", flush=True)
+    return rows
+
+
+def census_epe(i1, i2, gt, limits):
+    """tests/test_stress.py's census comparison on the pair (i1, i2):
+    flow_forward_backward with DenseFlowConfig() and with census_weight
+    1.0, the mean EPE against `gt` over each flow's unoccluded pixels;
+    each flow's launches asserted from its configuration, the census
+    term's launches all of B5's with census.  Returns {name: EPE}, and
+    {name: (ms, occluded share)}."""
+    import torch
+
+    from rs_sfm_tpu_torch.flow.config import DenseFlowConfig
+    from rs_sfm_tpu_torch.flow.dense import flow_forward_backward
+
+    h, w = gt.shape[:2]
+    epe, info = {}, {}
+    for name, cfg in (("plain", DenseFlowConfig()),
+                      ("census", DenseFlowConfig(census_weight=1.0))):
+        wrap = reset_counts()
+        t0 = time.perf_counter()
+        fb = flow_forward_backward(i1, i2, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: wrap[k].launches for k in ("warp", "match_search",
+                                                "sor_sweeps",
+                                                "median3_planes")}
+        expect = flow_launches(cfg, h, w, limits)
+        check(counts == expect, f"census {name} {h}x{w}: launches {counts} "
+              f"== {expect}")
+        census_l = wrap["sor_sweeps"].census_launches
+        check(census_l == (counts["sor_sweeps"] if name == "census" else 0),
+              f"census {name} {h}x{w}: {census_l} census launches")
+        use = ~fb.occlusion
+        epe[name] = float(torch.linalg.vector_norm(fb.flow - gt, dim=-1)[use]
+                          .mean())
+        info[name] = (ms, float(fb.occlusion.float().mean()))
+    return epe, info
+
+
+def phase_a10(dev, castle, castle_photo):
+    """The A10 flow options: (a) B5 with the census term and (b) B4's
+    shifted search against their plain versions; (c) the census term end
+    to end: tests/test_stress.py's census gates on its own 128x128 scene
+    and on phase 6b's full-HD photometric castle pair, then the CLI's
+    single-run --flow-model census on a full-HD castle pair with those
+    nuisances (galaxy_stabil intrinsics, 8-bit PNGs); (d) the clean castle
+    through E2E_FLOW_PRESET with refine_shifted and E2E_CONFIG at the
+    clean gates.  Returns {"census": B5's record, "shifted": B4's rows}."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from rs_sfm_tpu_torch import cli
+    from rs_sfm_tpu_torch.config import E2E_CONFIG, E2E_FLOW_PRESET
+    from rs_sfm_tpu_torch.data import png
+    from rs_sfm_tpu_torch.data.intrinsics import REGISTRY
+    from rs_sfm_tpu_torch.data.synthetic import (apply_photometric,
+                                                 castle_scene,
+                                                 default_intrinsics,
+                                                 render_pair)
+    from rs_sfm_tpu_torch.eval.gate import (PHOTOMETRIC, V_TRUE, W_TRUE,
+                                            production_gate)
+    from rs_sfm_tpu_torch.eval.metrics import translation_error
+    from rs_sfm_tpu_torch.flow.true_flow import true_flow
+    from rs_sfm_tpu_torch.ops.kernels.sor import card_limits
+
+    t_phase = time.perf_counter()
+    limits = card_limits(dev)
+    _, i1, i2, _ = e2e_inputs(dev)
+    out = {"census": check_census_sor(i1, i2),
+           "shifted": check_shifted_searches(i1, i2)}
+
+    # (c) The census gates: first on tests/test_stress.py's own scene,
+    # rendered on the card in float64 as the test renders it.
+    size = CENSUS_TEST_SCENE["size"]
+    intr = default_intrinsics(size, size)
+    pair = render_pair(castle_scene(torch.float64, dev), intr, size, size,
+                       gamma=GAMMA, k=0.0, v=CENSUS_TEST_SCENE["v"],
+                       w=CENSUS_TEST_SCENE["w"], dtype=torch.float64)
+    gt = true_flow(pair.frame1.rs_unproject, pair.frame2.poses_r,
+                   pair.frame2.poses_t, intr).float()
+    i2n = apply_photometric(pair.frame2.rs_image.float(), torch.Generator(
+        device=dev).manual_seed(1), **PHOTOMETRIC)
+    failed = []
+    for scene, (a, b, g), epe_gated in (
+            (f"tests/test_stress.py's {size}x{size} castle",
+             (pair.frame1.rs_image.float(), i2n, gt), True),
+            (f"phase 6b's {W}x{H} photometric castle",
+             (castle.i1, castle_photo, castle.gt_flow), False)):
+        epe, info = census_epe(a, b, g, limits)
+        ratio = epe["census"] / epe["plain"]
+        print(f"[15 a10] (c) census on {scene}: mean EPE over unoccluded "
+              f"pixels {epe['census']:.4f} px ("
+              + ("gate" if epe_gated else "not gated; the test's")
+              + f" {CENSUS_GATES['epe']}) vs without census "
+              f"{epe['plain']:.4f} px, ratio {ratio:.4f} (gate "
+              f"{CENSUS_GATES['ratio']}); occluded {info['census'][1]:.4f} "
+              f"/ {info['plain'][1]:.4f}; host {info['census'][0]:.1f} / "
+              f"{info['plain'][0]:.1f} ms", flush=True)
+        if not (ratio < CENSUS_GATES["ratio"] and (
+                epe["census"] < CENSUS_GATES["epe"] or not epe_gated)):
+            failed.append(f"census gates on {scene}: {epe}")
+
+    # The CLI on a full-HD castle pair with the census nuisances.
+    work = ROOT / "build" / "census_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cam = PSEUDO_REAL["camera"]
+    pair = render_pair(castle_scene(torch.float32, dev), REGISTRY[cam], H,
+                       W, gamma=GAMMA, k=0.0, v=V_TRUE, w=W_TRUE,
+                       dtype=torch.float32)
+    frames = (pair.frame1.rs_image, apply_photometric(
+        pair.frame2.rs_image, torch.Generator(device=dev).manual_seed(1),
+        **PHOTOMETRIC))
+    for i, img in enumerate(frames):
+        png.write(str(work / f"frame{i + 1}.png"), np.clip(np.round(
+            img.cpu().numpy() * 255), 0, 255).astype(np.uint8))
+    wrap = reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["single-run", "--data", str(work), "--camera", cam,
+                  "--out", str(work / "results"), "--flow-model", "census",
+                  "--occlusion-mask", "--ransac-tol", "0.02",
+                  "--refine-starts", "4", "--device", str(dev)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    est = json.loads((work / "results" / "estimate.json").read_text())
+    err_v = float(translation_error(torch.tensor(est["v"],
+                                                 dtype=torch.float64),
+                                    V_TRUE))
+    census_l = wrap["sor_sweeps"].census_launches
+    print(f"[15 a10] (c) cli single-run --flow-model census --occlusion-mask "
+          f"on the {W}x{H} castle ({cam}) with those nuisances on frame 2 "
+          f"({run_s:.1f} s): err_v {err_v:.4f} (not gated), inliers "
+          f"{est['num_inliers']} = {est['num_inliers'] / (H * W):.4f} of "
+          f"pixels; B5 census launches {census_l}; launches {counts}",
+          flush=True)
+    check(census_l == counts["sor_sweeps"] > 0,
+          "the CLI's census flow ran B5's census term")
+    check(counts["score_hypotheses"] > 0, "the CLI's census run launched B1")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (d) The clean castle through the shifted refine at the clean gates.
+    flow_cfg = E2E_FLOW_PRESET._replace(refine_shifted=True)
+    gates = CASTLE_GATES["clean"][1]
+    wrap = reset_counts()
+    mark, read = stage_marks()
+    got = production_gate(castle, castle.i2, flow_cfg, E2E_CONFIG,
+                          torch.Generator(device=dev).manual_seed(0),
+                          timer=mark)
+    stages = read()
+    counts = {k: fn.launches for k, fn in wrap.items()}
+    expect = {**flow_launches(flow_cfg, H, W, limits),
+              **estimation_launches(E2E_CONFIG)}
+    shifted = wrap["match_search"].shifted_launches
+    print(f"[15 a10] (d) clean castle, E2E_FLOW_PRESET with refine_shifted, "
+          f"E2E_CONFIG: "
+          + " ".join(f"{k}={v:.4f}" + (f" (gate {gates[k]})" if k in gates
+                                       else "") for k, v in got.items())
+          + "; ms " + " ".join(f"{k}={v:.2f}" for k, v in stages.items())
+          + f"; shifted searches {shifted}; launches {counts}", flush=True)
+    check({k: counts[k] for k in expect} == expect,
+          f"shifted castle launches {counts} == {expect}")
+    # Every refine search was shifted (the coarse ones of the forward and
+    # backward passes are not).
+    check(shifted == counts["match_search"] - 2 > 0,
+          f"shifted searches {shifted}")
+    for k, gate in gates.items():
+        check(got[k] <= gate, f"shifted castle: {k} {got[k]} <= {gate}")
+    print(f"[15 a10] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check(not failed, "; ".join(failed))
+    return out
+
+
 def main():
     import argparse
 
@@ -3217,6 +3596,9 @@ def main():
     phase_relock(dev, castle)
     phase_pseudo_real(dev)
     phase_video(dev, castle)
+    a10 = phase_a10(dev, castle, castle_photo)
+    records["sor_sweeps"]["census"] = a10["census"]
+    records["match_search"]["shifted"] = a10["shifted"]
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "rs_sfm_tpu")
                   for m in sys.modules), "no JAX module was imported")
 

@@ -14,8 +14,8 @@ subcommands, with the JAX CLI's flags, outputs and files.
 device `--device cuda` raises rather than falling back to the CPU.
 `--x64` runs the solver in float64 (the dense flow and the fused kernels
 stay float32).  `--warp-engine` / `--sor-engine` are accepted, and both of
-their values run the port's flow kernels.  Options the port lacks raise
-NotImplementedError naming their ROADMAP item.
+their values run the port's flow kernels.  `--census-weight` and
+`--flow-model census` run the census data term through the SOR kernel.
 
 Examples:
   python -m rs_sfm_tpu_torch.cli generate --out /tmp/ds --size 128
@@ -50,13 +50,6 @@ def _add_common(p):
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--x64", action="store_true",
                    help="float64 solver and renderer")
-
-
-def _check_options(args):
-    """NotImplementedError for the estimation flags the port lacks."""
-    if (args.census_weight or 0.0) > 0.0:
-        raise NotImplementedError("--census-weight > 0: the census data term "
-                                  "is not ported (ROADMAP A10)")
 
 
 def _est_config(args):
@@ -156,7 +149,6 @@ def cmd_single_run(args):
     from rs_sfm_tpu_torch.rectify.crackfill import fill_cracks
     from rs_sfm_tpu_torch.solver.pipeline import estimate_with_feedback
 
-    _check_options(args)
     device, dtype = _setup(args)
     if args.camera:
         pair = load_real_pair(args.data, intr_registry.get(args.camera))
@@ -237,7 +229,6 @@ def cmd_sweep(args):
     from rs_sfm_tpu_torch.data.dataset import load_synthetic_pair
     from rs_sfm_tpu_torch.eval.harness import evaluate_velocities
 
-    _check_options(args)
     device, dtype = _setup(args)
     path = args.path
     with open(os.path.join(path, "tasks.txt")) as f:
@@ -380,9 +371,9 @@ def main(argv=None):
         p.add_argument("--deep-flow", action="store_true")
         p.add_argument("--flow-model", default="variational",
                        help="dense-flow preset from rs_sfm_tpu_torch.models "
-                            "(variational / fast / robust / auto: a coarse "
-                            "probe of each pair picks variational or "
-                            "robust)")
+                            "(variational / fast / robust / census / auto: "
+                            "a coarse probe of each pair picks variational "
+                            "or robust)")
         p.add_argument("--warp-engine", choices=("xla", "pallas"),
                        default="xla",
                        help="accepted; both run the warp kernel")
@@ -390,8 +381,9 @@ def main(argv=None):
                        default="xla",
                        help="accepted; both run the SOR kernel")
         p.add_argument("--census-weight", type=float, default=None,
-                       help="ternary-census data term weight; only 0 (off) "
-                            "is ported (ROADMAP A10)")
+                       help="ternary-census data term weight (real imagery "
+                            "with illumination changes; 0 = off; overrides "
+                            "the flow-model preset, including explicit 0)")
         p.add_argument("--occlusion-mask", action="store_true",
                        help="forward-backward occlusion check; occluded "
                             "pixels are excluded from RANSAC/refinement")

@@ -6,9 +6,11 @@
 //           (::_coarse_init) scan (2r+1)^2 integer candidates per pixel in a
 //           lax.scan: each candidate warps I2 (the TPU kernel), squares its
 //           difference with I1, box-sums it over 5x5 and updates the
-//           per-pixel best / second-best.  The port ran that scan from the
-//           host, about 24 small kernels a candidate; here a block runs all
-//           of it for a tile of pixels.
+//           per-pixel best / second-best.  The shifted refine
+//           (::_discrete_refine with refine_shifted) warps I2 once and
+//           reads each candidate at an integer shift of that plane.  The
+//           port ran that scan from the host, about 24 small kernels a
+//           candidate; here a block runs all of it for a tile of pixels.
 //
 // What it computes, per pixel p = (y, x), for candidate k = dy * side + dx
 // (side = 2r + 1, offset (du, dv) = (dx - r, dy - r)), in scan order:
@@ -16,6 +18,10 @@
 //           bilinear, edge-clamped sample of I2 at p + cand, in the operation
 //           order of ops/kernels/warp.py::warp_plain;
 //   coarse: cand = (du, dv), warped = I2[clip(y + dv), clip(x + du)];
+//   shifted: cand = flow(p) + (du, dv) (rounded to float32), warped =
+//           I2[clip(y + dv), clip(x + du)], I2 being the plane already
+//           warped once by the flow (DIS-style: candidate d tests the flow
+//           at p + d plus d);
 //   d2 = (warped - I1(p))^2;
 //   cost = 5x5 box sum of d2 over edge-clamped neighbours, rows first, each
 //          5-sum left to right: x[i+2] + x[i+1] + x[i] + x[i-1] + x[i-2];
@@ -37,11 +43,12 @@
 // What the design does about it: a block owns a TH x TW tile.  It first
 // stages I1 and the flow on the tile plus a 2-pixel halo (clamped
 // coordinates, so the halo holds exactly the clamped neighbours' values)
-// and a window of I2 in shared memory: for the coarse search the window
-// holds every pixel the tile reads; for the refine it is centred on the
-// tile's centre flow with MARGIN pixels to spare, and a corner outside it
-// is read from global memory (the same value, so the result does not
-// depend on the window).  Then it walks the candidates one row of offsets
+// and a window of I2 in shared memory: for the coarse and shifted
+// searches the window holds every pixel the tile reads (the shifted one
+// stages no flow: a pixel reads its own once, into registers); for the
+// refine it is centred on the tile's centre flow with MARGIN pixels to
+// spare, and a corner outside it is read from global memory (the same
+// value, so the result does not depend on the window).  Then it walks the candidates one row of offsets
 // (one dv, `side` candidates) at a time: all threads compute d2 on the
 // halo into shared memory, then the row 5-sums, then the column 5-sums
 // (the costs), and one thread per pixel scans the row's costs in order,
@@ -76,6 +83,10 @@ constexpr int MARGIN = 8;
 // The prior's tie-break strength (rs_sfm_tpu/flow/dense.py:437).
 constexpr float PRIOR_W = 0.35f;
 
+// Search modes: how a candidate's sample of I2 is read and what the
+// candidate is (see the header).
+constexpr int MODE_COARSE = 0, MODE_REFINE = 1, MODE_SHIFTED = 2;
+
 // Tile shapes (rows, columns), indexed by the wrapper's plan.
 constexpr int N_TILES = 4;
 constexpr int TILE_H[N_TILES] = {8, 8, 8, 4};
@@ -102,13 +113,14 @@ struct Window {
 
 // The sample of I2 for candidate (du, dv) at image pixel (y, x) of flow f
 // (refine: bilinear at x + f + d, edge-clamped, in warp_plain's operation
-// order; coarse: I2[clip(y + dv), clip(x + du)]).
-template <bool kCoarse>
+// order; kShift, the coarse and shifted searches: I2[clip(y + dv),
+// clip(x + du)]).
+template <bool kShift>
 __device__ __forceinline__ float sample(const Window& win,
                                        const float* __restrict__ i2, int h,
                                        int w, int y, int x, float2 f, int du,
                                        int dv) {
-  if (kCoarse) return win.read(i2, w, clampi(y + dv, h - 1),
+  if (kShift) return win.read(i2, w, clampi(y + dv, h - 1),
                                clampi(x + du, w - 1));
   const float cx = f.x + (float)du;
   const float cy = f.y + (float)dv;
@@ -173,29 +185,31 @@ struct Scan {
 };
 
 // Rows and columns of a TH x TW tile's staged window of I2.
-template <int TH, int TW, bool kCoarse>
+template <int TH, int TW, int kMode>
 __host__ __device__ constexpr int window_rows(int radius) {
-  return kCoarse ? TH + 4 + 2 * radius : TH + 5 + 2 * (radius + MARGIN);
+  return kMode != MODE_REFINE ? TH + 4 + 2 * radius
+                              : TH + 5 + 2 * (radius + MARGIN);
 }
-template <int TH, int TW, bool kCoarse>
+template <int TH, int TW, int kMode>
 __host__ __device__ constexpr int window_cols(int radius) {
-  return kCoarse ? TW + 4 + 2 * radius : TW + 5 + 2 * (radius + MARGIN);
+  return kMode != MODE_REFINE ? TW + 4 + 2 * radius
+                              : TW + 5 + 2 * (radius + MARGIN);
 }
 
 // Shared-memory floats of one block.
-template <int TH, int TW, bool kCoarse>
+template <int TH, int TW, int kMode>
 __host__ __device__ constexpr int smem_floats(int radius) {
-  return (kCoarse ? 0 : 2 * (TH + 4) * (TW + 4))  // flow on the halo
+  return (kMode == MODE_REFINE ? 2 * (TH + 4) * (TW + 4) : 0)  // the flow
          + (TH + 4) * (TW + 4)                    // I1 on the halo
-         + window_rows<TH, TW, kCoarse>(radius)
-               * window_cols<TH, TW, kCoarse>(radius)
+         + window_rows<TH, TW, kMode>(radius)
+               * window_cols<TH, TW, kMode>(radius)
          + (2 * radius + 1)
                * ((TH + 4) * (TW + 4) + TH * (TW + 4) + TH * TW);
 }
 
 // One block: the TH x TW tile at (blockIdx.y, blockIdx.x), every candidate
 // row in order, scanned in registers.
-template <int TH, int TW, bool kCoarse>
+template <int TH, int TW, int kMode>
 __global__ void __launch_bounds__(THREADS)
 match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
              const float* __restrict__ flow, const float* __restrict__ fb,
@@ -209,11 +223,12 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   extern __shared__ float smem[];
   const int side = 2 * radius + 1;
   const float2* flow2 = reinterpret_cast<const float2*>(flow);
+  constexpr bool kRefine = kMode == MODE_REFINE;
   float2* fls = reinterpret_cast<float2*>(smem);   // [HALO], refine only
-  float* i1s = smem + (kCoarse ? 0 : 2 * HALO);    // [HALO]
+  float* i1s = smem + (kRefine ? 2 * HALO : 0);    // [HALO]
   float* win_s = i1s + HALO;                       // the window of I2
-  const int wh = window_rows<TH, TW, kCoarse>(radius);
-  const int ww = window_cols<TH, TW, kCoarse>(radius);
+  const int wh = window_rows<TH, TW, kMode>(radius);
+  const int ww = window_cols<TH, TW, kMode>(radius);
   float* d2 = win_s + wh * ww;       // [side][HALO]
   float* rsum = d2 + side * HALO;    // [side][ROWS]
   float* cost = rsum + side * ROWS;  // [side][PIX]
@@ -221,19 +236,19 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   const int tid = threadIdx.x;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
 
-  // Stage I1 and the flow on the halo cells, and the window of I2: for
-  // the coarse search every read lies in it; for the refine it is centred
-  // on the tile's centre flow.
+  // Stage I1 and (refine) the flow on the halo cells, and the window of
+  // I2: for the coarse and shifted searches every read lies in it; for the
+  // refine it is centred on the tile's centre flow.
   for (int r = tid; r < HALO; r += THREADS) {
     const int hy = r / HW, hx = r - (r / HW) * HW;
     const int q = clampi(y0 - 2 + hy, h - 1) * w + clampi(x0 - 2 + hx, w - 1);
     i1s[r] = i1[q];
-    if (!kCoarse) fls[r] = flow2[q];
+    if (kRefine) fls[r] = flow2[q];
   }
   Window win;
   win.y0 = y0 - 2 - radius;
   win.x0 = x0 - 2 - radius;
-  if (!kCoarse) {
+  if (kRefine) {
     const float2 c = flow2[min(y0 + TH / 2, h - 1) * w
                            + min(x0 + TW / 2, w - 1)];
     const float lim = (float)(h + w);
@@ -257,7 +272,8 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   s.init();
   __syncthreads();
   float2 base = make_float2(0.0f, 0.0f);
-  if (!kCoarse && owner) base = fls[(ty + 2) * HW + tx + 2];
+  if (kRefine && owner) base = fls[(ty + 2) * HW + tx + 2];
+  if (kMode == MODE_SHIFTED && owner) base = flow2[p];
   const bool use_prior = prior != nullptr;
   float2 pr = make_float2(0.0f, 0.0f);
   if (use_prior && owner) pr = reinterpret_cast<const float2*>(prior)[p];
@@ -269,10 +285,10 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
     for (int i = tid; i < side * HALO; i += THREADS) {
       const int g = i / HALO, r = i - (i / HALO) * HALO;
       const int hy = r / HW, hx = r - (r / HW) * HW;
-      const float d = sample<kCoarse>(
+      const float d = sample<!kRefine>(
           win, i2, h, w, clampi(y0 - 2 + hy, h - 1),
           clampi(x0 - 2 + hx, w - 1),
-          kCoarse ? make_float2(0.0f, 0.0f) : fls[r], g - radius, dv)
+          kRefine ? fls[r] : make_float2(0.0f, 0.0f), g - radius, dv)
           - i1s[r];
       d2[i] = d * d;
     }
@@ -291,10 +307,10 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
     }
     __syncthreads();
     if (owner) {
-      const float cv = kCoarse ? (float)dv : base.y + (float)dv;
+      const float cv = kMode == MODE_COARSE ? (float)dv : base.y + (float)dv;
       for (int g = 0; g < side; ++g) {
         const float du = (float)(g - radius);
-        const float cu = kCoarse ? du : base.x + du;
+        const float cu = kMode == MODE_COARSE ? du : base.x + du;
         const float c = cost[g * PIX + tid];
         float sel = c;
         if (use_prior) {
@@ -309,14 +325,14 @@ match_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   if (owner) s.write(p, fb, ratio, best, second, amb);
 }
 
-template <int TH, int TW, bool kCoarse>
+template <int TH, int TW, int kMode>
 int launch_tile(const float* i1, const float* i2, const float* flow,
                 const float* fb, const float* prior, float* best,
                 float* second, unsigned char* amb, int h, int w, int radius,
                 float ratio, cudaStream_t stream) {
   const size_t smem =
-      (size_t)smem_floats<TH, TW, kCoarse>(radius) * sizeof(float);
-  auto kernel = match_kernel<TH, TW, kCoarse>;
+      (size_t)smem_floats<TH, TW, kMode>(radius) * sizeof(float);
+  auto kernel = match_kernel<TH, TW, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -326,7 +342,7 @@ int launch_tile(const float* i1, const float* i2, const float* flow,
   return (int)cudaGetLastError();
 }
 
-template <bool kCoarse>
+template <int kMode>
 int launch_mode(int tile, const float* i1, const float* i2, const float* flow,
                 const float* fb, const float* prior, float* best,
                 float* second, unsigned char* amb, int h, int w, int radius,
@@ -334,7 +350,7 @@ int launch_mode(int tile, const float* i1, const float* i2, const float* flow,
   switch (tile) {
 #define MATCH_TILE(t)                                                        \
   case t:                                                                    \
-    return launch_tile<TILE_H[t], TILE_W[t], kCoarse>(                       \
+    return launch_tile<TILE_H[t], TILE_W[t], kMode>(                         \
         i1, i2, flow, fb, prior, best, second, amb, h, w, radius, ratio,     \
         stream);
     MATCH_TILE(0)
@@ -349,24 +365,29 @@ int launch_mode(int tile, const float* i1, const float* i2, const float* flow,
 
 }  // namespace
 
-// i1, i2: (h, w) f32 matching planes; flow: (h, w, 2) f32, 8-byte
-// aligned, or null for the coarse search; fb: (h, w, 2) f32 ratio fallback,
-// 8-byte aligned, or null for none (then ratio is not read); prior: (h, w,
-// 2) f32, 8-byte aligned, or null for none (the caller passes no fallback
-// with a prior); best, second:
+// i1, i2: (h, w) f32 matching planes (shifted: i2 already warped by the
+// flow); flow: (h, w, 2) f32, 8-byte aligned, or null for the coarse
+// search; shifted: non-zero for the shifted search (flow not null); fb:
+// (h, w, 2) f32 ratio fallback, 8-byte aligned, or null for none (then
+// ratio is not read); prior: (h, w, 2) f32, 8-byte aligned, or null for
+// none (the caller passes no fallback with a prior); best, second:
 // (h, w, 2) f32 out; amb: (h, w) bytes out; tile: index into TILE_H /
 // TILE_W.
 extern "C" int match_launch(const float* i1, const float* i2,
-                            const float* flow, const float* fb,
+                            const float* flow, int shifted, const float* fb,
                             const float* prior, float* best, float* second,
                             unsigned char* amb, int h, int w, int radius,
                             float ratio, int tile, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  if (radius < 0) return (int)cudaErrorInvalidValue;
+  if (radius < 0 || (shifted && flow == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (flow == nullptr)
-    return launch_mode<true>(tile, i1, i2, flow, fb, prior, best, second, amb,
-                             h, w, radius, ratio, s);
-  return launch_mode<false>(tile, i1, i2, flow, fb, prior, best, second, amb,
-                            h, w, radius, ratio, s);
+    return launch_mode<MODE_COARSE>(tile, i1, i2, flow, fb, prior, best,
+                                    second, amb, h, w, radius, ratio, s);
+  if (shifted)
+    return launch_mode<MODE_SHIFTED>(tile, i1, i2, flow, fb, prior, best,
+                                     second, amb, h, w, radius, ratio, s);
+  return launch_mode<MODE_REFINE>(tile, i1, i2, flow, fb, prior, best,
+                                  second, amb, h, w, radius, ratio, s);
 }

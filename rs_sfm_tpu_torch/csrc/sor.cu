@@ -20,6 +20,8 @@
 // operations per pixel (two square roots and four divisions among them)
 // against 48 bytes that must move over a whole call (8 planes and (u, v)
 // read, (u, v) written); at 20 sweeps that is above the card's ridge point.
+// The census term adds about 168 operations (8 more square roots and
+// divisions) and 96 bytes a pixel.
 //
 // What the design does about it: each launch runs up to K sweeps (2K colour
 // passes) on tiles held in shared memory, so the planes cross HBM once per
@@ -45,6 +47,24 @@
 // consecutive words for the cell itself and for all four neighbours (which
 // are of the other colour): no bank conflicts.
 //
+// The census data term (DenseFlowConfig.census_weight > 0; the JAX package
+// runs it only on its XLA loop, rs_sfm_tpu/flow/dense.py:681-689): an
+// optional operand of 24 sweep-invariant planes, cjx, cjy and ccc of each
+// of the 8 census channels (planes c, 8 + c and 16 + c), in the absolute
+// form rc = cjx u + cjy v + ccc.  Per channel, in the order 0 to 7, the
+// point solve adds the Charbonnier weight wc = census_weight / sqrt(rc^2 +
+// eps2) (written (1 / s) * census_weight, as wd is) times cjx cjx, cjx cjy
+// and cjy cjy to a11, a12 and a22, and subtracts wc cjx ccc, wc cjy ccc from
+// b1 and b2; each of the five is summed over the channels first, from
+// channel 0's term, then added.  The census planes make a pixel 136 bytes
+// instead of 40, so the 40x80 tile with its 8-pixel halo could not stage
+// them in a block's shared memory: a block stages the 10 planes of the
+// tile plan without census and reads the 24 census planes of the cell being
+// updated from global memory through the read-only cache (kCensus).  On an
+// H100 that was the faster of the two designs timed at full HD (3.55
+// against 3.81 ms for 20 sweeps with all 34 planes staged on 16x32 tiles),
+// and the two took the same time summed over the e2e pyramid's 7 levels.
+//
 // Numerics: compiled with -fmad=false, with IEEE sqrtf and '/', and in the
 // operation order of the plain PyTorch version (ops/kernels/sor.py::
 // sor_sweeps_plain), which writes wbr / s as (1 / s) * wbr because that is
@@ -61,9 +81,10 @@ namespace {
 
 constexpr int MAX_THREADS = 1024;
 constexpr int NPLANES = 10;  // ix, iy, c, ixx, ixy, iyy, cgx, cgy, u, v
+constexpr int NCENSUS = 8;   // census channels: cjx, cjy, ccc planes each
 
 struct SorParams {
-  float omega, lam, eps2, wbr, wgrad;
+  float omega, lam, eps2, wbr, wgrad, census_weight;
 };
 
 struct Tiling {
@@ -81,10 +102,13 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
 
 // The point solve of cell (ly, lx = 2 j + par) of the copy: its new
 // (u, v).  row_c is the start of its row in its colour's half of plane 0,
-// row_o the same row in the other colour's half.
+// row_o the same row in the other colour's half.  With kCensus, census + g
+// is the cell's value of census plane 0 in global memory (plane stride n).
+template <bool kCensus>
 __device__ __forceinline__ void point_solve(
     const float* row_c, const float* row_o, int64_t plane_stride, int j,
     int par, int ly, int lx, int lh, int lw, int hw, const SorParams& prm,
+    const float* __restrict__ census, int64_t g, int64_t n,
     float& u_new_out, float& v_new_out) {
   const float ix = row_c[j];
   const float iy = row_c[plane_stride + j];
@@ -122,11 +146,43 @@ __device__ __forceinline__ void point_solve(
   const float ubar = (u_up + u_dn + u_lf + u_rt) * 0.25f;
   const float vbar = (v_up + v_dn + v_lf + v_rt) * 0.25f;
 
-  const float a11 = lam + wd * ix * ix + wg * (ixx * ixx + ixy * ixy);
-  const float a12 = wd * ix * iy + wg * (ixx * ixy + ixy * iyy);
-  const float a22 = lam + wd * iy * iy + wg * (ixy * ixy + iyy * iyy);
-  const float b1 = lam * ubar - wd * ix * c - wg * (ixx * cgx + ixy * cgy);
-  const float b2 = lam * vbar - wd * iy * c - wg * (ixy * cgx + iyy * cgy);
+  float a11 = lam + wd * ix * ix + wg * (ixx * ixx + ixy * ixy);
+  float a12 = wd * ix * iy + wg * (ixx * ixy + ixy * iyy);
+  float a22 = lam + wd * iy * iy + wg * (ixy * ixy + iyy * iyy);
+  float b1 = lam * ubar - wd * ix * c - wg * (ixx * cgx + ixy * cgy);
+  float b2 = lam * vbar - wd * iy * c - wg * (ixy * cgx + iyy * cgy);
+  if (kCensus) {
+    float s11 = 0.0f, s12 = 0.0f, s22 = 0.0f, sb1 = 0.0f, sb2 = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < NCENSUS; ++ch) {
+      const float cx = __ldg(census + ch * n + g);
+      const float cy = __ldg(census + (NCENSUS + ch) * n + g);
+      const float cc = __ldg(census + (2 * NCENSUS + ch) * n + g);
+      const float rc = cx * uc + cy * vc + cc;
+      const float wc = (1.0f / sqrtf(rc * rc + eps2)) * prm.census_weight;
+      const float wx = wc * cx, wy = wc * cy;
+      // Channel 0's terms start the sums (no 0 + x, which would turn -0
+      // into +0).
+      if (ch == 0) {
+        s11 = wx * cx;
+        s12 = wx * cy;
+        s22 = wy * cy;
+        sb1 = wx * cc;
+        sb2 = wy * cc;
+      } else {
+        s11 = s11 + wx * cx;
+        s12 = s12 + wx * cy;
+        s22 = s22 + wy * cy;
+        sb1 = sb1 + wx * cc;
+        sb2 = sb2 + wy * cc;
+      }
+    }
+    a11 = a11 + s11;
+    a12 = a12 + s12;
+    a22 = a22 + s22;
+    b1 = b1 - sb1;
+    b2 = b2 - sb2;
+  }
   float det = a11 * a22 - a12 * a12;
   det = fabsf(det) < 1e-12f ? 1e-12f : det;
   const float u_new = (a22 * b1 - a12 * b2) / det;
@@ -135,10 +191,12 @@ __device__ __forceinline__ void point_solve(
   v_new_out = vc + prm.omega * (v_new - vc);
 }
 
+template <bool kCensus>
 __global__ void __launch_bounds__(MAX_THREADS)
 sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
                 const float* __restrict__ v_in, float* __restrict__ u_out,
-                float* __restrict__ v_out, Tiling tl, int sweeps,
+                float* __restrict__ v_out,
+                const float* __restrict__ census, Tiling tl, int sweeps,
                 SorParams prm, int in_cs) {
   extern __shared__ float smem[];
   const int h = tl.h, w = tl.w;
@@ -185,8 +243,9 @@ sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
         const int lx = 2 * j + par;
         if (lx < rx0 || lx >= rx1) continue;
         float un, vn;
-        point_solve(row_c, row_o, plane_stride, j, par, ly, lx, lh, lw, hw,
-                    prm, un, vn);
+        point_solve<kCensus>(row_c, row_o, plane_stride, j, par, ly, lx, lh,
+                             lw, hw, prm, census,
+                             (int64_t)(gy0 + ly) * w + gx0 + lx, n, un, vn);
         row_c[8 * plane_stride + j] = un;
         row_c[9 * plane_stride + j] = vn;
       }
@@ -203,44 +262,22 @@ sor_tile_kernel(const float* __restrict__ coef, const float* __restrict__ u_in,
   }
 }
 
-}  // namespace
-
-// coef: (8, h, w) f32; u_in, v_in: (h, w) f32 with column stride in_cs
-// (1 or 2) and row stride in_cs * w, read only.  Runs `iters`
-// sweeps in ceil(iters / sweeps) launches of `sweeps` sweeps each (the last
-// may run fewer) over tiles of tile_h x tile_w with the given halo; the
-// result lands in (u_out, v_out).  (u_tmp, v_tmp) is the other buffer of
-// the ping-pong between launches (unused with one launch).  Returns the
-// number of launches in *launches and a cudaError_t.
-extern "C" int sor_launch(const float* coef, const float* u_in,
-                          const float* v_in, float* u_out, float* v_out,
-                          float* u_tmp, float* v_tmp, int in_cs, int h, int w,
-                          int iters, int tile_h, int tile_w, int halo,
-                          int sweeps,
-                          float omega, float lam, float eps2, float wbr,
-                          float wgrad, int* launches, void* stream) {
-  *launches = 0;
-  if (h <= 0 || w <= 0 || iters <= 0) return 0;
-  if (tile_h <= 0 || tile_w <= 0 || sweeps <= 0 || halo < 0 || in_cs < 1)
-    return (int)cudaErrorInvalidValue;
-  const SorParams prm{omega, lam, eps2, wbr, wgrad};
-  Tiling tl;
-  tl.h = h;
-  tl.w = w;
-  tl.tile_h = tile_h;
-  tl.tile_w = tile_w;
-  tl.halo = halo;
-  tl.cap_h = std::min(h, tile_h + 2 * halo);
-  tl.cap_hw = (std::min(w, tile_w + 2 * halo) + 1) / 2;
+template <bool kCensus>
+int launch_all(const float* coef, const float* u_in, const float* v_in,
+               float* u_out, float* v_out, float* u_tmp, float* v_tmp,
+               const float* census, int in_cs, const Tiling& tl, int iters,
+               int sweeps, const SorParams& prm, int* launches,
+               cudaStream_t stream) {
   // 10 planes of the copied region, split by colour.
   const size_t smem = sizeof(float) * NPLANES * 2 * tl.cap_h * tl.cap_hw;
+  auto kernel = sor_tile_kernel<kCensus>;
   cudaError_t err = cudaFuncSetAttribute(
-      sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int bx = std::min(tl.cap_hw, MAX_THREADS);
   const int by = std::max(1, std::min(tl.cap_h, MAX_THREADS / bx));
-  const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h);
+  const dim3 grid((tl.w + tl.tile_w - 1) / tl.tile_w,
+                  (tl.h + tl.tile_h - 1) / tl.tile_h);
   const int n_launch = (iters + sweeps - 1) / sweeps;
   const float* us = u_in;
   const float* vs = v_in;
@@ -250,8 +287,8 @@ extern "C" int sor_launch(const float* coef, const float* u_in,
     float* ud = to_out ? u_out : u_tmp;
     float* vd = to_out ? v_out : v_tmp;
     const int s = std::min(sweeps, iters - l * sweeps);
-    sor_tile_kernel<<<grid, dim3(bx, by), smem, (cudaStream_t)stream>>>(
-        coef, us, vs, ud, vd, tl, s, prm, l == 0 ? in_cs : 1);
+    kernel<<<grid, dim3(bx, by), smem, stream>>>(
+        coef, us, vs, ud, vd, census, tl, s, prm, l == 0 ? in_cs : 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;
@@ -259,4 +296,45 @@ extern "C" int sor_launch(const float* coef, const float* u_in,
     vs = vd;
   }
   return 0;
+}
+
+}  // namespace
+
+// coef: (8, h, w) f32; u_in, v_in: (h, w) f32 with column stride in_cs
+// (1 or 2) and row stride in_cs * w, read only.  Runs `iters`
+// sweeps in ceil(iters / sweeps) launches of `sweeps` sweeps each (the last
+// may run fewer) over tiles of tile_h x tile_w with the given halo; the
+// result lands in (u_out, v_out).  (u_tmp, v_tmp) is the other buffer of
+// the ping-pong between launches (unused with one launch).  census: null,
+// or (24, h, w) f32 (cjx, cjy, ccc of the 8 channels) with weight
+// census_weight, read from global memory.  Returns the number of launches
+// in *launches and a cudaError_t.
+extern "C" int sor_launch(const float* coef, const float* u_in,
+                          const float* v_in, float* u_out, float* v_out,
+                          float* u_tmp, float* v_tmp, int in_cs, int h, int w,
+                          int iters, int tile_h, int tile_w, int halo,
+                          int sweeps,
+                          float omega, float lam, float eps2, float wbr,
+                          float wgrad, const float* census,
+                          float census_weight, int* launches, void* stream) {
+  *launches = 0;
+  if (h <= 0 || w <= 0 || iters <= 0) return 0;
+  if (tile_h <= 0 || tile_w <= 0 || sweeps <= 0 || halo < 0 || in_cs < 1)
+    return (int)cudaErrorInvalidValue;
+  const SorParams prm{omega, lam, eps2, wbr, wgrad, census_weight};
+  Tiling tl;
+  tl.h = h;
+  tl.w = w;
+  tl.tile_h = tile_h;
+  tl.tile_w = tile_w;
+  tl.halo = halo;
+  tl.cap_h = std::min(h, tile_h + 2 * halo);
+  tl.cap_hw = (std::min(w, tile_w + 2 * halo) + 1) / 2;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (census == nullptr)
+    return launch_all<false>(coef, u_in, v_in, u_out, v_out, u_tmp, v_tmp,
+                             census, in_cs, tl, iters, sweeps, prm, launches,
+                             s);
+  return launch_all<true>(coef, u_in, v_in, u_out, v_out, u_tmp, v_tmp,
+                          census, in_cs, tl, iters, sweeps, prm, launches, s);
 }

@@ -30,8 +30,13 @@ search kernel's prior), and the anchored pass (`anchor_ambiguous`) zeroes
 the data term at the pixels the searches found ambiguous, so the
 smoothness term fills them from their unambiguous neighbours.
 
-Not ported (they raise NotImplementedError): the census data term and the
-shifted discrete refine.
+The census data term (`census_weight` > 0: 8 soft-sign neighbour
+channels, each with its own Charbonnier weight) goes to the SOR kernel as
+24 more sweep-invariant planes; the JAX package runs it on its XLA loop
+only, which the SOR twin is held to as without census.  The shifted
+refine (`refine_shifted`) warps I2 once by the flow (the warp kernel) and
+runs the search kernel's shifted mode: candidate d's cost is read at
+integer shifts of that plane (DIS-style).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from rs_sfm_tpu_torch.flow.config import DenseFlowConfig
-from rs_sfm_tpu_torch.ops import stencil
+from rs_sfm_tpu_torch.ops import resample, stencil
 from rs_sfm_tpu_torch.ops.kernels import match as kmatch
 from rs_sfm_tpu_torch.ops.kernels import median as kmedian
 from rs_sfm_tpu_torch.ops.kernels import sor as ksor
@@ -50,11 +55,7 @@ from rs_sfm_tpu_torch.ops.kernels import warp as kwarp
 
 
 def check_supported(cfg: DenseFlowConfig) -> None:
-    """Raise NotImplementedError for the options this port leaves out."""
-    if cfg.census_weight > 0.0:
-        raise NotImplementedError("the census data term is not ported")
-    if cfg.refine_shifted:
-        raise NotImplementedError("the shifted discrete refine is not ported")
+    """Raise ValueError for an engine name the JAX package does not have."""
     for name in ("warp_engine", "sor_engine"):
         if getattr(cfg, name) not in ("xla", "pallas"):
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
@@ -69,38 +70,9 @@ def _to_gray(img):
     return img
 
 
-# 5-tap binomial kernel (exact in float32).
-_BINOMIAL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
-
-
-def _gauss_blur(x):
-    """5-tap binomial blur over the last two axes, rows first, edges
-    replicated (summed in the JAX function's order)."""
-    def conv1d(v, axis):
-        out = _BINOMIAL[0] * _shift(v, -2, axis)
-        for i in range(1, 5):
-            out = out + _BINOMIAL[i] * _shift(v, i - 2, axis)
-        return out
-
-    return conv1d(conv1d(x, -2), -1)
-
-
-def _downsample(x):
-    return _gauss_blur(x)[..., ::2, ::2]
-
-
-def _up2(x):
-    """Exact 2x bilinear upsample (half-pixel centres) of the last two
-    axes: out[2i] = 0.75 x[i] + 0.25 x[i-1], out[2i+1] = 0.75 x[i] +
-    0.25 x[i+1], edge-clamped."""
-    lead = x.shape[:-2]
-    h, w = x.shape[-2:]
-    rows = torch.stack([0.75 * x + 0.25 * _shift(x, 1, -2),
-                        0.75 * x + 0.25 * _shift(x, -1, -2)], dim=-2)
-    rows = rows.reshape(*lead, 2 * h, w)
-    cols = torch.stack([0.75 * rows + 0.25 * _shift(rows, 1, -1),
-                        0.75 * rows + 0.25 * _shift(rows, -1, -1)], dim=-1)
-    return cols.reshape(*lead, 2 * h, 2 * w)
+_gauss_blur = resample.gauss_blur
+_downsample = resample.down2_blur
+_up2 = resample.up2
 
 
 def _resize_bilinear(x, shape):
@@ -154,6 +126,32 @@ def _gradients(img):
     return gx, gy
 
 
+# The census channels' neighbour offsets (dy, dx), in the JAX order
+# (rs_sfm_tpu/flow/dense.py:345).
+_CENSUS_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
+                   (0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def _census_channels(img, sigma: float):
+    """Soft ternary census: (8, H, W) channels d / sqrt(d^2 + sigma^2) of
+    the neighbour differences d = I(x + n) - I(x), edge-clamped shifts (a
+    correctly rounded square root, as ops/kernels/sor._sqrt)."""
+    c = torch.stack([_shift(_shift(img, dy, -2), dx, -1) - img
+                     for dy, dx in _CENSUS_OFFSETS])
+    return c / ksor._sqrt(c * c + sigma * sigma)
+
+
+def census_planes(cen1, i2w, flow, sigma: float):
+    """The census term's 24 SOR planes (ops/kernels/sor.py): cjx, cjy (the
+    gradients of I2w's census channels) and their constant parts ccc =
+    (cen2w - cen1) - cjx u0 - cjy v0 in absolute flow, linearised around
+    `flow` with I2 already warped by it; cen1: `_census_channels` of I1."""
+    cen2w = _census_channels(i2w, sigma)
+    cjx, cjy = _gradients(cen2w)
+    ccc = (cen2w - cen1) - cjx * flow[..., 0] - cjy * flow[..., 1]
+    return torch.cat([cjx, cjy, ccc])
+
+
 def _local_contrast_norm(x, eps: float):
     """(x - mu) / sqrt(var + eps^2) with local (double-5-tap) mean and
     variance: invariant to smooth gain and offset fields."""
@@ -196,22 +194,28 @@ def _coarse_init(i1, i2, radius: int, cfg, prior=None):
 
 
 def _discrete_refine(i1, i2, flow, radius: int, cfg, prior=None):
-    """Warp-local integer search (exact mode): candidate flow + d for d in
-    [-radius, radius]^2, each I2 re-warped, best box-filtered SSD per pixel;
-    `prior` (this level's) breaks ties toward itself.
+    """Warp-local integer search: candidate flow + d for d in
+    [-radius, radius]^2, best box-filtered SSD per pixel; `prior` (this
+    level's) breaks ties toward itself.  Exact mode re-warps I2 for each
+    candidate; with cfg.refine_shifted I2 is warped once by `flow` and
+    candidate d's cost read at the integer shift d of that plane.
     Returns (median-cleaned flow, second, ambiguous)."""
     i1m, i2m = _match_planes(i1, i2, cfg)
-    best, second, amb = kmatch.match_search(i1m, i2m, flow, radius,
-                                            cfg.match_ratio, flow, prior)
+    if cfg.refine_shifted:
+        i2m = kwarp.warp(i2m, flow)
+    best, second, amb = kmatch.match_search(
+        i1m, i2m, flow, radius, cfg.match_ratio, flow, prior,
+        shifted=cfg.refine_shifted)
     return _median_flow(best[..., 0], best[..., 1]), second, amb
 
 
-def _sor(coef, u, v, iters: int, cfg):
+def _sor(coef, u, v, iters: int, cfg, census=None):
     return ksor.sor_sweeps(coef, u, v, iters=iters, omega=float(cfg.omega),
                            lam=float(cfg.smoothness),
                            eps2=float(cfg.eps * cfg.eps),
                            wbr=float(cfg.brightness_weight),
-                           wgrad=float(cfg.gamma_grad))
+                           wgrad=float(cfg.gamma_grad), census=census,
+                           census_weight=float(cfg.census_weight))
 
 
 def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True,
@@ -219,13 +223,16 @@ def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True,
     """Warping + red-black SOR solves at one pyramid level.
 
     data_mask: optional (H, W) float in {0, 1}; where it is 0 all 8
-    coefficient planes are zeroed, so SOR's point solve there is the
-    smoothness term's neighbour average alone (the anchored pass)."""
+    coefficient planes (and the census planes) are zeroed, so SOR's point
+    solve there is the smoothness term's neighbour average alone (the
+    anchored pass)."""
     warps = cfg.warps if finest or cfg.warps_coarse <= 0 else \
         cfg.warps_coarse
     iters = cfg.iters if finest or cfg.iters_coarse <= 0 else \
         cfg.iters_coarse
     g1 = _gradients(i1)
+    cen1 = (_census_channels(i1, cfg.census_sigma)
+            if cfg.census_weight > 0.0 else None)
     for _ in range(warps):
         i2w = kwarp.warp(i2, flow)
         if cfg.gain_correct:
@@ -234,9 +241,13 @@ def _level_solve(i1, i2, flow, cfg: DenseFlowConfig, *, finest: bool = True,
             b2 = _gauss_blur(_gauss_blur(_gauss_blur(_gauss_blur(i2w))))
             i2w = i2w * torch.clamp((b1 + 1e-2) / (b2 + 1e-2), 0.7, 1.4)
         coef = linearize(i1, i2w, flow, g1)
+        census = (census_planes(cen1, i2w, flow, cfg.census_sigma)
+                  if cen1 is not None else None)
         if data_mask is not None:
             coef = coef * data_mask
-        u, v = _sor(coef, flow[..., 0], flow[..., 1], iters, cfg)
+            if census is not None:
+                census = census * data_mask
+        u, v = _sor(coef, flow[..., 0], flow[..., 1], iters, cfg, census)
         flow = (_median_flow(u, v) if cfg.median
                 else torch.stack([u, v], dim=-1))
     return flow

@@ -6,8 +6,8 @@ names and values:
   variational  pyramidal warping flow, 6 warps at the coarse levels
   fast         low-iteration variational preset for previews and video
   robust       local-contrast-normalised data term for real imagery
-  census       census data term (its data term is not ported: the preset
-               is listed, and dense flow raises NotImplementedError on it)
+  census       census data term and structure-texture (the census
+               planes go to the SOR kernel, csrc/sor.cu)
 
 and "auto", the per-pair probe (flow/auto.py), which needs the frame pair:
 `resolve_flow_preset`.

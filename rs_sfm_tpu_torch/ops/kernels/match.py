@@ -2,21 +2,25 @@
 PyTorch twin.
 
 The JAX package's warp-local refine (rs_sfm_tpu/flow/dense.py::
-_discrete_refine, exact mode) and coarse integer search (::_coarse_init)
-scan (2r+1)^2 integer candidates per pixel, each through the TPU warp
-kernel rs_sfm_tpu/ops/pallas/warp.py::bilinear_warp, a squared difference,
-a 5x5 box sum and the best / second-best update.  `match_search` runs one
-such search in one launch; `match_search_plain` is the search as the port
-ran it before the kernel existed: chunks of candidates through
-`warp_plain` (refine) or edge-padded slices (coarse), `box5` and `_scan`,
-in the same operation order.
+_discrete_refine) and coarse integer search (::_coarse_init) scan
+(2r+1)^2 integer candidates per pixel, each through the TPU warp kernel
+rs_sfm_tpu/ops/pallas/warp.py::bilinear_warp (exact refine) or an integer
+shift (coarse, shifted refine), a squared difference, a 5x5 box sum and
+the best / second-best update.  `match_search` runs one such search in
+one launch; `match_search_plain` is the search as the port ran it before
+the kernel existed: chunks of candidates through `warp_plain` (refine) or
+edge-padded slices (coarse, shifted), `box5` and `_scan`, in the same
+operation order.
 
 Modes:
   * refine (`flow` an (H, W, 2) tensor): candidate k is flow + d_k,
     rounded to float32, and I2 is sampled bilinearly at x + candidate,
     edge-clamped (warp_plain's operation order);
   * coarse (`flow` None): candidate k is d_k, and I2 is read at
-    (clip(y + dv), clip(x + du)).
+    (clip(y + dv), clip(x + du));
+  * shifted (`flow` a tensor and `shifted`): I2 is the plane already
+    warped once by the flow; candidate k is flow + d_k, as in refine, and
+    I2 is read as in coarse (rs_sfm_tpu/flow/dense.py:555-561).
 Candidate k = dy * side + dx has offset d_k = (dx - r, dy - r).
 
 With a prior (an (H, W, 2) flow, the relock pass's model flow), each
@@ -128,7 +132,9 @@ def _chunks(n: int, h: int, w: int):
     return [(a, min(n, a + step)) for a in range(0, n, step)]
 
 
-def _check(i1m, i2m, flow, radius, fallback, prior=None):
+def _check(i1m, i2m, flow, radius, fallback, prior=None, shifted=False):
+    if shifted and flow is None:
+        raise ValueError("the shifted search needs the flow")
     if i1m.dim() != 2 or i2m.shape != i1m.shape:
         raise ValueError(f"i1m and i2m must be one (H, W) shape, got "
                          f"{tuple(i1m.shape)} and {tuple(i2m.shape)}")
@@ -149,34 +155,36 @@ def _check(i1m, i2m, flow, radius, fallback, prior=None):
 
 
 def match_search_plain(i1m, i2m, flow, radius: int, ratio: float = 0.0,
-                       fallback=None, prior=None):
+                       fallback=None, prior=None, shifted: bool = False):
     """Plain PyTorch version of `match_search` (same arguments)."""
-    _check(i1m, i2m, flow, radius, fallback, prior)
+    _check(i1m, i2m, flow, radius, fallback, prior, shifted)
     h, w = i1m.shape
     offs = candidates(radius)
-    if flow is None:
+    if flow is None or shifted:
         padded = stencil.pad_edge(i2m, radius)
 
         def cost_chunks():
             for a, b in _chunks(len(offs), h, w):
-                shifted = torch.stack([
+                moved = torch.stack([
                     padded[int(dv) + radius:int(dv) + radius + h,
                            int(du) + radius:int(du) + radius + w]
                     for du, dv in offs[a:b]])
-                d = shifted - i1m
+                d = moved - i1m
                 yield box5(d * d)
-
-        def cand_of(k):
-            return offs[k]
     else:
         off_t = torch.tensor(offs, dtype=flow.dtype, device=flow.device)
-        fu, fv = flow[..., 0], flow[..., 1]
 
         def cost_chunks():
             for a, b in _chunks(len(offs), h, w):
                 cand = flow[None] + off_t[a:b, None, None, :]
                 d = warp_plain(i2m, cand) - i1m
                 yield box5(d * d)
+
+    if flow is None:
+        def cand_of(k):
+            return offs[k]
+    else:
+        fu, fv = flow[..., 0], flow[..., 1]
 
         def cand_of(k):
             du, dv = offs[k]
@@ -225,7 +233,7 @@ def _lib():
     lib = _build.load("match")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.match_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+        lib.match_launch.argtypes = [p, p, p, i, p, p, p, p, p, i, i, i,
                                      ctypes.c_float, i, p]
         lib.match_launch.restype = ctypes.c_int
         lib._typed = True
@@ -233,7 +241,7 @@ def _lib():
 
 
 def match_launch(i1m, i2m, flow, radius: int, ratio: float, fallback,
-                 tile: int, prior=None):
+                 tile: int, prior=None, shifted: bool = False):
     """One search by csrc/match.cu on tile `tile` (an index into TILES),
     from CUDA tensors; returns (best, second, ambiguous) like
     `match_search`.  Not counted in `match_search.launches`."""
@@ -251,7 +259,7 @@ def match_launch(i1m, i2m, flow, radius: int, ratio: float, fallback,
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.match_launch(
             i1m.data_ptr(), i2m.data_ptr(),
-            None if flow is None else flow.data_ptr(),
+            None if flow is None else flow.data_ptr(), int(shifted),
             fallback.data_ptr() if use_fb else None,
             None if prior is None else prior.data_ptr(), best.data_ptr(),
             second.data_ptr(), amb.data_ptr(), h, w, radius,
@@ -260,13 +268,15 @@ def match_launch(i1m, i2m, flow, radius: int, ratio: float, fallback,
 
 
 def match_search(i1m, i2m, flow, radius: int, ratio: float = 0.0,
-                 fallback=None, prior=None):
+                 fallback=None, prior=None, shifted: bool = False):
     """One discrete search of radius `radius` (see the module docstring).
 
     Args:
-      i1m, i2m: (H, W) float32 matching planes of frames 1 and 2.
+      i1m, i2m: (H, W) float32 matching planes of frames 1 and 2 (with
+        `shifted`, frame 2's warped by `flow`).
       flow: (H, W, 2) float32 flow around which to search (refine), or
         None for the search over integer shifts (coarse).
+      shifted: the shifted refine (see the module docstring).
       radius: candidates per axis 2 * radius + 1.
       ratio, fallback: where ratio > 0 and fallback ((H, W, 2)) is given
         and prior is None, a pixel whose best cost is not below ratio x
@@ -279,20 +289,24 @@ def match_search(i1m, i2m, flow, radius: int, ratio: float = 0.0,
     and best cost >= 0.9 x second cost.
 
     On CUDA tensors this launches the kernel of csrc/match.cu (counted in
-    `match_search.launches`); on CPU tensors it runs `match_search_plain`.
+    `match_search.launches`, and in `match_search.shifted_launches` in the
+    shifted mode); on CPU tensors it runs `match_search_plain`.
     """
-    _check(i1m, i2m, flow, radius, fallback, prior)
+    _check(i1m, i2m, flow, radius, fallback, prior, shifted)
     if i1m.device.type == "cpu":
         return match_search_plain(i1m, i2m, flow, radius, ratio, fallback,
-                                  prior)
+                                  prior, shifted)
     if i1m.device.type != "cuda":
         raise ValueError(f"unsupported device {i1m.device}")
     h, w = i1m.shape
     out = match_launch(i1m, i2m, flow, radius, ratio, fallback,
                        tile_plan(h, w, radius, card_limits(i1m.device)),
-                       prior)
+                       prior, shifted)
     match_search.launches += 1
+    match_search.shifted_launches += shifted
     return out
 
 
 match_search.launches = 0
+# The launches of match_search.launches in the shifted mode.
+match_search.shifted_launches = 0

@@ -161,7 +161,7 @@ def test_projection_roundtrip_matches_jax():
                    jnp.asarray([0.003, -0.002, 0.004]), 0.8, 32, 0.9,
                    dtype=jnp.float64)
     jintr = JaxIntrinsics(**dataclasses.asdict(intr))
-    want = float(jax.jit(lambda r, t: j_rt(32, 32, jintr, r, t))(r, t))
+    want = float(run_jitted(lambda r, t: j_rt(32, 32, jintr, r, t), r, t))
     got = float(projection_roundtrip_error(
         32, 32, intr, torch.from_numpy(np.array(r)),
         torch.from_numpy(np.array(t))))

@@ -4,7 +4,7 @@ test-flow at 32x32 with --device cpu, held to tests/test_harness.py's
 gates (err_w < 1e-3, err_v < 0.02, reprojection < 0.2), single-run with
 --acceleration too (and |k| < 0.2 on the k = 0 dataset), --flow-model auto
 in single-run and sweep (the probe picks variational on the clean castle);
---census-weight > 0, which the port lacks, raises NotImplementedError,
+--census-weight and --flow-model census reach dense flow with --deep-flow,
 and --device cuda without a card raises instead of running on the CPU."""
 
 import json
@@ -17,6 +17,7 @@ import torch
 from rs_sfm_tpu_torch import cli
 from rs_sfm_tpu_torch.data import png
 from rs_sfm_tpu_torch.data.dataset import load_synthetic_pair
+from rs_sfm_tpu_torch.flow import dense as tdense
 
 # The test workers share the CPU with the JAX tests: a few intra-op threads
 # each (the results do not depend on the count).
@@ -133,17 +134,35 @@ def test_test_flow(dataset, capsys):
     assert lines[1].endswith("-> OK")
 
 
-@pytest.mark.parametrize("flags", [
-    ["--acceleration", "--census-weight", "0.5"],
-    ["--flow-model", "auto", "--census-weight", "0.5"],
-    ["--census-weight", "0.5"]])
-def test_unported_flags_raise(dataset, tmp_path, flags):
-    """--census-weight > 0 (ROADMAP A10) raises, whatever comes with it;
-    --acceleration and --flow-model auto run (the tests below)."""
-    for cmd in (["single-run", "--data", str(dataset)],
-                ["sweep", "--path", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(cmd + flags + CPU)
+@pytest.mark.parametrize("flags,weight", [
+    (["--acceleration", "--census-weight", "0.5"], 0.5),
+    (["--flow-model", "census"], 1.0),
+    (["--census-weight", "0.5"], 0.5)])
+def test_census_flags_reach_dense_flow(dataset, tmp_path, monkeypatch,
+                                       flags, weight):
+    """--census-weight and the census preset run (ROADMAP A10): single-run
+    and sweep with --deep-flow hand dense flow the census weight, and
+    finish with a finite estimate."""
+    weights = []
+    inner = tdense.dense_flow_aux
+
+    def spy(image1, image2, cfg, prior=None):
+        weights.append(cfg.census_weight)
+        return inner(image1, image2, cfg, prior)
+
+    monkeypatch.setattr(tdense, "dense_flow_aux", spy)
+    out = tmp_path / "res"
+    cli.main(["single-run", "--data", str(dataset), "--out", str(out),
+              "--deep-flow"] + EST + flags + CPU)
+    est = json.loads((out / "estimate.json").read_text())
+    assert np.isfinite(est["v"]).all() and est["num_inliers"] > 0
+    sweep = tmp_path / "sweep"
+    shutil.copytree(dataset, sweep / "t0",
+                    ignore=shutil.ignore_patterns("results"))
+    (sweep / "tasks.txt").write_text("t0\n")
+    cli.main(["sweep", "--path", str(sweep), "--num-evaluations", "1",
+              "--deep-flow"] + EST + flags + CPU)
+    assert len(weights) >= 2 and set(weights) == {weight}
 
 
 @pytest.mark.parametrize("flags", [["--acceleration", "--flow-model", "auto"],

@@ -26,7 +26,9 @@ code.  B8 (the z-buffer splat) is bit-exact: integer keys and a colour
 copy.  B4's discrete search (csrc/match.cu) is bit-exact on every tile: the
 warp's IEEE operations without FMA contraction, the box's adds and the scan
 in the plain version's order, with a prior too (the selection cost's
-factor without contraction).  The camera-pipeline nuisances agree with the
+factor without contraction), and in its shifted mode.  The census term of
+B5 is bit-exact on both of its designs (no FMA contraction, channels summed
+in a fixed order).  The camera-pipeline nuisances agree with the
 CPU to 1e-6 (elementwise operations; the DCT has no matmul).  RANSAC takes
 its draws on the card.
 """
@@ -563,6 +565,52 @@ def test_sor_kernel_matches_plain(cuda_device, h, w, iters):
     assert torch.equal(u_f, u_p) and torch.equal(v_f, v_p)
 
 
+def _census_problem(h, w, seed, device):
+    """SOR's coefficient and census planes of a real warp (a smooth plane,
+    frame 2 rolled by (1, 2) px with its exposure raised by 1.2) around a
+    flow far from the solution, on `device`."""
+    from rs_sfm_tpu_torch.flow import dense as tdense
+
+    rng = np.random.default_rng(seed)
+    i1 = torch.from_numpy(_smooth_plane(h, w, rng)).to(device)
+    i2w = 1.2 * torch.roll(i1, (1, 2), (0, 1))
+    flow = torch.from_numpy(rng.normal(scale=0.5, size=(h, w, 2)).astype(
+        np.float32)).to(device)
+    coef = tdense.linearize(i1, i2w, flow).contiguous()
+    census = tdense.census_planes(tdense._census_channels(i1, 0.04), i2w,
+                                  flow, 0.04).contiguous()
+    return coef, census, flow[..., 0].contiguous(), flow[..., 1].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [7, 20])
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+def test_sor_kernel_with_census_matches_plain(cuda_device, h, w, iters):
+    """The census term (24 more planes, read from global memory on the
+    plan without census): through the wrapper (its plan and launches),
+    bit-exact to the plain version; census None and a zero census weight
+    keep the bits of the run without census."""
+    coef, census, u0, v0 = _census_problem(h, w, h + w, cuda_device)
+    params = dict(iters=iters, omega=1.85, lam=0.08, eps2=1e-6, wbr=1.0,
+                  wgrad=0.7)
+    limits = tsor.card_limits(cuda_device)
+    before = tsor.sor_sweeps.launches
+    u_k, v_k = tsor.sor_sweeps(coef, u0, v0, census=census,
+                               census_weight=1.0, **params)
+    torch.cuda.synchronize()
+    assert tsor.sor_sweeps.launches == before + tsor.launches_per_call(
+        h, w, iters, limits)
+    u_p, v_p = tsor.sor_sweeps_plain(coef, u0, v0, census=census,
+                                     census_weight=1.0, **params)
+    assert torch.equal(u_k, u_p) and torch.equal(v_k, v_p)
+    u_n, _ = tsor.sor_sweeps_plain(coef, u0, v0, **params)
+    assert not torch.equal(u_n, u_p)
+    u_z, _ = tsor.sor_sweeps(coef, u0, v0, census=census, census_weight=0.0,
+                             **params)
+    u_0, _ = tsor.sor_sweeps(coef, u0, v0, **params)
+    assert torch.equal(u_0, u_n) and torch.equal(u_z, u_n)
+
+
 # The discrete searches of the e2e pass: (shape, radius, refine).
 SEARCHES = [((135, 240), 4, True), ((68, 120), 4, True), ((34, 60), 4, True),
             ((17, 30), 4, True), ((34, 60), 8, False), ((17, 30), 8, False)]
@@ -677,6 +725,46 @@ def test_match_kernel_with_a_prior_matches_plain(cuda_device, shape, radius,
     # The prior moved picks.
     free = tmatch.match_search(*args)
     assert not torch.equal(free[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("ratio", [0.0, 0.8])
+@pytest.mark.parametrize("shape", [s for s, r, refine in SEARCHES if refine])
+def test_match_kernel_shifted_matches_plain(cuda_device, shape, ratio,
+                                            prior):
+    """The shifted refine (frame 2's plane warped once by the flow, the
+    candidates read at integer shifts of it) at the e2e refine shapes,
+    radius 4, with and without a prior and the ratio fallback: bit-exact
+    to the plain version through the wrapper (one launch) and on every
+    tile; it is not the exact refine."""
+    h, w = shape
+    i1m, i2m, flow = (a.to(cuda_device) for a in _search_inputs(h, w, h))
+    warped = twarp.warp(i2m, flow)
+    pr = None
+    if prior:
+        rng = np.random.default_rng(w)
+        pr = flow + torch.from_numpy(rng.uniform(-3.0, 3.0, (h, w, 2)).astype(
+            np.float32)).to(cuda_device)
+    args = (i1m, warped, flow, 4, ratio, flow if ratio > 0 else None, pr)
+    ref = tmatch.match_search_plain(*args, shifted=True)
+    assert 0 < int(ref[2].sum()) < h * w
+    before = tmatch.match_search.launches
+    got = tmatch.match_search(*args, shifted=True)
+    torch.cuda.synchronize()
+    assert tmatch.match_search.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _same_bits(g, r)
+    limits = tsor.card_limits(cuda_device)
+    for tile in range(len(tmatch.TILES)):
+        if tmatch.smem_bytes(tile, 4) > limits[1]:
+            continue
+        res = tmatch.match_launch(*args[:6], tile, pr, shifted=True)
+        torch.cuda.synchronize()
+        for g, r in zip(res, ref):
+            assert _same_bits(g, r), tile
+    exact = tmatch.match_search(*args)
+    assert not torch.equal(exact[0], got[0])
 
 
 @pytest.mark.cuda

@@ -9,6 +9,9 @@ tensors):
   * B5 SOR: the plain twin is the TPU kernel's absolute form, held to the
     JAX XLA loop (delta form) through `dense_flow` at one level within
     1e-3 px, the bound the JAX package holds its own kernel to.
+The census data term at one level against the JAX XLA loop in float32
+and float64, and the shifted discrete refine through the variational
+preset's forward flow at 64x128.
 Then `flow_forward_backward` with the variational preset and the
 half-resolution backward pass at 64x128 against the JAX package's XLA
 engines.  The SOR formulations and XLA's fused multiply-adds differ at
@@ -27,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 import chip_smoke
+from jax_reference import run_jitted
 from rs_sfm_tpu.flow import dense as jdense
 from rs_sfm_tpu.models import get_flow_preset as jget_preset
 from rs_sfm_tpu.ops.pallas.median import median3_planes as jmedian_pallas
@@ -177,7 +181,8 @@ def fb_pair():
 def fb_results(fb_pair):
     i1, i2, _ = fb_pair
     jcfg = jget_preset("variational", backward_scale=2)
-    rj = jdense.flow_forward_backward(jnp.asarray(i1), jnp.asarray(i2), jcfg)
+    rj = run_jitted(lambda a, b: jdense.flow_forward_backward(a, b, jcfg),
+                    jnp.asarray(i1), jnp.asarray(i2))
     rj = {k: np.asarray(getattr(rj, k)) for k in rj._fields}
     rt = tdense.flow_forward_backward(torch.from_numpy(i1),
                                       torch.from_numpy(i2),
@@ -247,13 +252,134 @@ def test_flow_goes_through_the_kernel_wrappers(fb_pair, monkeypatch, engine):
     assert all(n > 0 for n in calls.values())
 
 
-@pytest.mark.parametrize("change", [
-    dict(census_weight=1.0), dict(refine_shifted=True)])
-def test_unported_flow_options_raise(change):
-    i1, i2 = _smooth_pair(32, 48)
-    cfg = tdense.DenseFlowConfig(**change)
-    with pytest.raises(NotImplementedError):
-        tdense.dense_flow(torch.from_numpy(i1), torch.from_numpy(i2), cfg)
+def test_flow_options_go_through_the_kernel_wrappers(fb_pair, monkeypatch):
+    """With the census term and the shifted refine, flow_forward_backward
+    calls B4-B6 as often as chip_smoke.py's count from the configuration
+    (asserted there against the launch counters on the card): every SOR
+    call with the census planes, every refine search shifted after one
+    warp of its own."""
+    calls = {"warp": 0, "match_search": 0, "sor_sweeps": 0,
+             "median3_planes": 0, "census": 0, "shifted": 0}
+
+    def spy(name, fn, weight):
+        def wrapped(*args, **kwargs):
+            calls[name] += weight(args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def sor_weight(a, kw):
+        n = tsor.launches_per_call(*a[1].shape, kw["iters"])
+        calls["census"] += n if kw["census"] is not None else 0
+        return n
+
+    def match_weight(a, kw):
+        calls["shifted"] += kw.get("shifted", False)
+        return 1
+
+    monkeypatch.setattr(twarp, "warp",
+                        spy("warp", twarp.warp, lambda a, kw: 1))
+    monkeypatch.setattr(tmatch, "match_search",
+                        spy("match_search", tmatch.match_search,
+                            match_weight))
+    monkeypatch.setattr(tsor, "sor_sweeps",
+                        spy("sor_sweeps", tsor.sor_sweeps, sor_weight))
+    for fn in ("median3_planes", "median3_flow"):
+        monkeypatch.setattr(tmedian, fn, spy("median3_planes",
+                                             getattr(tmedian, fn),
+                                             lambda a, kw: 1))
+    i1, i2, _ = fb_pair
+    cfg = tconfig.E2E_FLOW_PRESET._replace(iters=2, warps_coarse=2,
+                                           census_weight=1.0,
+                                           refine_shifted=True)
+    tdense.flow_forward_backward(torch.from_numpy(i1), torch.from_numpy(i2),
+                                 cfg)
+    assert {k: calls[k] for k in chip_smoke.flow_launches(cfg, H, W)} == (
+        chip_smoke.flow_launches(cfg, H, W))
+    assert calls["census"] == calls["sor_sweeps"] > 0
+    # The coarse search of each pass is not shifted; its refines are.
+    assert calls["shifted"] == calls["match_search"] - 2 == 3
+
+
+def _census_case():
+    """The census term at one level (no discrete search), 98x200: frame 2
+    the plane shifted by (1, -1) px with its exposure raised by 1.2, which
+    brightness constancy alone cannot explain.  The JAX XLA loop runs in
+    float32 and, as the float64 reference, in float64."""
+    i1, i2 = _smooth_pair(98, 200, seed=7, shift=(1, -1))
+    i2 = (1.2 * i2).astype(np.float32)
+    cfg = dict(levels=1, init_search_radius=0, refine_search_radius=0,
+               census_weight=1.0)
+    jcfg = jdense.DenseFlowConfig(**cfg)
+
+    def jflow(a, b):
+        return run_jitted(lambda x, y: jdense.dense_flow(x, y, jcfg), a, b)
+
+    ref = np.asarray(jflow(jnp.asarray(i1), jnp.asarray(i2)))
+    ref64 = np.asarray(jflow(jnp.asarray(i1, jnp.float64),
+                             jnp.asarray(i2, jnp.float64)))
+    args = (torch.from_numpy(i1), torch.from_numpy(i2))
+    got = tdense.dense_flow(*args, tdense.DenseFlowConfig(**cfg)).numpy()
+    plain = tdense.dense_flow(*args, tdense.DenseFlowConfig(
+        **{**cfg, "census_weight": 0.0})).numpy()
+    # Within 1e-3 px of the float32 loop at the median and p95.  A census
+    # point solve sums 8 channels whose Charbonnier weights reach
+    # 1 / eps = 1000, so at a few pixels float32 rounding moves the flow by
+    # 1e-2 px after 3 warps x 20 sweeps: there the JAX loop in float32 is
+    # about as far from its float64 run as the port is, which the p99 and
+    # max gates hold within 1.5x.
+    epe = np.linalg.norm(got - ref, axis=-1)
+    assert np.median(epe) <= 1e-4 and np.percentile(epe, 95) <= 1e-3, (
+        np.median(epe), np.percentile(epe, 95))
+    e64 = np.linalg.norm(got - ref64, axis=-1)
+    j64 = np.linalg.norm(ref - ref64, axis=-1)
+    assert np.percentile(e64, 99) <= 1.5 * np.percentile(j64, 99)
+    assert e64.max() <= 1.5 * j64.max()
+    # The census term is on: under the exposure change it brings the flow
+    # nearer the true (-1, 1) px than brightness constancy alone.
+    truth = np.float32([-1.0, 1.0])
+    inner = (slice(4, -4), slice(4, -4))
+    assert (np.median(np.linalg.norm(got - truth, axis=-1)[inner])
+            < 0.5 * np.median(np.linalg.norm(plain - truth, axis=-1)[inner]))
+
+
+@pytest.fixture(scope="module")
+def shifted_results(fb_pair):
+    """The forward flow of the variational preset with the shifted refine,
+    JAX's on its XLA engines (its warp is exact; its Pallas warp clamps)."""
+    i1, i2, _ = fb_pair
+    jcfg = jget_preset("variational", refine_shifted=True)
+    rj = run_jitted(lambda a, b: jdense.dense_flow_aux(a, b, jcfg),
+                    jnp.asarray(i1), jnp.asarray(i2))
+    rt = tdense.dense_flow_aux(torch.from_numpy(i1), torch.from_numpy(i2),
+                               get_flow_preset("variational",
+                                               refine_shifted=True))
+    return {k: np.asarray(getattr(rj, k)) for k in rj._fields}, rt
+
+
+def _shifted_case(fb_pair, shifted_results):
+    """As the forward flow of test_flow_forward_backward_matches_jax, with
+    its EPE percentiles: the discrete refines' costs are exact (the warp
+    and the shifts are), the SOR twin is the absolute form."""
+    rj, rt = shifted_results
+    epe = np.linalg.norm(rt.flow.numpy() - rj["flow"], axis=-1)
+    assert np.median(epe) <= 1e-3 and np.percentile(epe, 99) <= 0.1, (
+        np.median(epe), np.percentile(epe, 99))
+    assert np.percentile(epe[~rj["ambiguous"]], 99) <= 0.02
+    np.testing.assert_array_equal(rt.ambiguous.numpy(), rj["ambiguous"])
+    truth = np.linalg.norm(rt.flow.numpy() + fb_pair[2], axis=-1)
+    assert np.median(truth) < 0.5
+
+
+@pytest.mark.parametrize("option", ["census", "shifted"])
+def test_flow_options_match_jax(option, request):
+    """The census data term (through the SOR twin's census planes) and the
+    shifted discrete refine (through the search twin's shifted mode)
+    against the JAX package."""
+    if option == "census":
+        _census_case()
+    else:
+        _shifted_case(request.getfixturevalue("fb_pair"),
+                      request.getfixturevalue("shifted_results"))
 
 
 def test_auto_preset_needs_the_pair():

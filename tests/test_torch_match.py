@@ -12,7 +12,9 @@
     (exact refine, XLA warp) at 34x60: the ambiguity masks equal, the
     median-cleaned and second-best flows equal except where JAX's costs of
     the two candidates lie within 4 ulp (XLA contracts the warp's blend
-    into fused multiply-adds, the port rounds each operation); the same
+    into fused multiply-adds, the port rounds each operation); the shifted
+    refine (one warp, then integer shifts of the warped plane) bit-exact:
+    the costs, picks, flows and ambiguity mask; the same
     with a prior (the relock pass's tie-break), the selection costs taking
     the raw costs' place, and the ratio fallback skipped;
   * a prior at one of several exactly tied locks takes it.
@@ -24,11 +26,13 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax_reference import run_jitted
 
 from rs_sfm_tpu.flow import dense as jdense
 from rs_sfm_tpu_torch.flow import dense as tdense
 from rs_sfm_tpu_torch.ops import stencil
 from rs_sfm_tpu_torch.ops.kernels import match as tmatch
+from rs_sfm_tpu_torch.ops.kernels import warp as twarp
 from rs_sfm_tpu_torch.ops.kernels.warp import warp_plain
 
 # The test workers share the CPU with the JAX tests: a few intra-op threads
@@ -291,7 +295,7 @@ def _near_3x3(mask):
                    for dx in range(3)], axis=0)
 
 
-@pytest.mark.parametrize("mode", ["coarse", "refine"])
+@pytest.mark.parametrize("mode", ["coarse", "refine", "shifted"])
 def test_search_matches_jax(mode):
     h, w = 34, 60
     rng = np.random.default_rng(8)
@@ -301,9 +305,10 @@ def test_search_matches_jax(mode):
                 / 4).astype(np.float32)
     i1 = base[6:6 + h, 6:6 + w].copy()
     i2 = base[5:5 + h, 8:8 + w].copy()
-    cfg_t = tdense.DenseFlowConfig()
-    cfg_j = jdense.DenseFlowConfig(refine_shifted=False, warp_engine="xla",
-                                   sor_engine="xla")
+    shifted = mode == "shifted"
+    cfg_t = tdense.DenseFlowConfig(refine_shifted=shifted)
+    cfg_j = jdense.DenseFlowConfig(refine_shifted=shifted,
+                                   warp_engine="xla", sor_engine="xla")
     i1m, i2m = (np.array(a) for a in jdense._match_planes(
         jnp.asarray(i1), jnp.asarray(i2), cfg_j))
     if mode == "coarse":
@@ -327,23 +332,39 @@ def test_search_matches_jax(mode):
     flow_t, second_t, amb_t = (a.numpy() for a in rt)
     np.testing.assert_array_equal(amb_t, amb_j)
 
-    # JAX's cost of every candidate, as its scan forms it.
+    # JAX's cost of every candidate, as its scan forms it (the shifted
+    # refine reads the plane warped once by the flow, op by op as JAX's
+    # _discrete_refine warps it).
     offs = jnp.asarray(tmatch.candidates(radius), jnp.float32)
+    plane = (np.array(jdense._warp(jnp.asarray(i2m), jnp.asarray(flow)))
+             if shifted else i2m)
 
     def cost(d):
-        if flow is None:
-            padded = jnp.pad(jnp.asarray(i2m), radius, mode="edge")
-            shifted = jax.lax.dynamic_slice(
+        if flow is None or shifted:
+            padded = jnp.pad(jnp.asarray(plane), radius, mode="edge")
+            moved = jax.lax.dynamic_slice(
                 padded, (d[1].astype(int) + radius, d[0].astype(int) + radius),
                 (h, w))
         else:
-            shifted = jdense._warp(jnp.asarray(i2m), jnp.asarray(flow) + d)
-        return jdense._box5((shifted - jnp.asarray(i1m)) ** 2)
+            moved = jdense._warp(jnp.asarray(i2m), jnp.asarray(flow) + d)
+        return jdense._box5((moved - jnp.asarray(i1m)) ** 2)
 
-    costs = np.asarray(jax.jit(jax.vmap(cost))(offs))
+    # The shifted costs op by op (vmapped, not jitted: under jit XLA's CPU
+    # fusion rounds 6.6 % of them 1 ulp away from the IEEE order).
+    costs = np.asarray(jax.vmap(cost)(offs) if shifted
+                       else run_jitted(jax.vmap(cost), offs))
     raw_t = tmatch.match_search_plain(
-        torch.from_numpy(i1m), torch.from_numpy(i2m),
-        None if flow is None else torch.from_numpy(flow), radius)
+        torch.from_numpy(i1m), torch.from_numpy(plane),
+        None if flow is None else torch.from_numpy(flow), radius,
+        shifted=shifted)
+    if shifted:
+        # The port's warped plane and every candidate's cost are JAX's.
+        np.testing.assert_array_equal(
+            twarp.warp(torch.from_numpy(i2m), torch.from_numpy(flow))
+            .numpy(), plane)
+        np.testing.assert_array_equal(
+            tmatch.box5((_d2(torch.from_numpy(i1m), torch.from_numpy(plane),
+                             None, radius))).numpy(), costs)
     k_t = _cand_index(raw_t[0].numpy(), base_flow, radius)
     k_j = np.argmin(costs, axis=0)  # the scan keeps the first minimum
     yy, xx = np.indices((h, w))
@@ -367,7 +388,12 @@ def test_search_matches_jax(mode):
     # The near ties are rare: at most 2 % of the pixels.
     assert flipped.mean() <= 0.02 and s_diff.mean() <= 0.02, (
         flipped.mean(), s_diff.mean())
-    assert 0 < amb_t.sum() < h * w or mode == "refine"
+    if shifted:
+        # Exact costs: every pick, flow and second best is JAX's.
+        assert not flipped.any()
+        np.testing.assert_array_equal(flow_t, flow_j)
+        np.testing.assert_array_equal(second_t, second_j)
+    assert 0 < amb_t.sum() < h * w or mode != "coarse"
 
 
 def _smooth_prior(h, w, centre, spread, seed):
@@ -453,7 +479,7 @@ def test_prior_search_matches_jax(mode):
             shifted = jdense._warp(jnp.asarray(i2m), jnp.asarray(flow) + d)
         return jdense._box5((shifted - jnp.asarray(i1m)) ** 2)
 
-    sel = _selection(np.asarray(jax.jit(jax.vmap(cost))(offs)), base_flow,
+    sel = _selection(np.asarray(run_jitted(jax.vmap(cost), offs)), base_flow,
                      prior, radius)
     args = (torch.from_numpy(i1m), torch.from_numpy(i2m),
             None if flow is None else torch.from_numpy(flow), radius)

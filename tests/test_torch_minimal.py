@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
+from jax_reference import compile_level0
 
 from rs_sfm_tpu.ops import linalg as jlinalg
 from rs_sfm_tpu.solver import minimal as jmin
@@ -24,10 +24,25 @@ W_TOL = 2.3e-10
 V_TOL = 2.3e-9
 B = 64
 
-# Jitted once per shape: eager JAX retraces the Jacobi loops on every call.
-_jax_velocities = jax.jit(jmin.calculate_velocities, static_argnums=(4,))
-_jax_eigh = jax.jit(jlinalg.eigh_small)
-_jax_null = jax.jit(jlinalg.null_vector)
+
+def _compiled(fn):
+    """fn compiled once per input shape at XLA's optimization level 0
+    (jax_reference.compile_level0): eager JAX retraces the Jacobi loops on
+    every call."""
+    cache = {}
+
+    def call(*args):
+        key = tuple((a.shape, a.dtype) for a in args)
+        if key not in cache:
+            cache[key] = compile_level0(fn, *args)
+        return cache[key](*args)
+    return call
+
+
+_jax_velocities = _compiled(
+    lambda q, u, a, ak: jmin.calculate_velocities(q, u, a, ak, False))
+_jax_eigh = _compiled(jlinalg.eigh_small)
+_jax_null = _compiled(jlinalg.null_vector)
 
 
 def _random_samples(seed):
@@ -64,7 +79,7 @@ def _rs_samples(seed):
 def test_calculate_velocities_matches_jax(make, seed):
     q, u, a, ak = make(seed)
     wj, vj, kj = _jax_velocities(
-        *[jnp.asarray(x, jnp.float64) for x in (q, u, a, ak)], False)
+        *[jnp.asarray(x, jnp.float64) for x in (q, u, a, ak)])
     wt, vt, kt = tmin.calculate_velocities(
         *[torch.tensor(x, dtype=torch.float64) for x in (q, u, a, ak)], False)
     wj, vj = np.asarray(wj), np.asarray(vj)

@@ -23,12 +23,14 @@ float32.
     package drifts along it (rho·|v| is the gauge-free depth).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
-from jax_reference import run_jitted
+from jax_reference import compile_level0, run_jitted
 
 from rs_sfm_tpu.ops.pallas import refine_kernels as jrk
 from rs_sfm_tpu.solver.beta import get_alpha, get_alpha_k
@@ -44,6 +46,21 @@ torch.set_num_threads(2)
 
 N = 4096
 HUBER = 1e-3
+
+_COMPILED = {}
+
+
+def _jax_call(fn, *args, **static):
+    """fn(*args, **static), compiled once per (function, static
+    arguments, shapes) by jax_reference.compile_level0 (one thread: the
+    package's own jit spreads the interpret-mode kernel's compile over two
+    cores for the same time)."""
+    key = (fn, tuple(sorted(static.items())),
+           tuple((a.shape, a.dtype) for a in args))
+    if key not in _COMPILED:
+        _COMPILED[key] = compile_level0(functools.partial(fn, **static),
+                                        *args)
+    return _COMPILED[key](*args)
 
 
 def _problem(seed=0, outliers=True):
@@ -107,14 +124,14 @@ def _advance_jax(state, px, masks, rho, steps, loss_delta):
     st = jnp.asarray(state)
     for _ in range(steps):
         if masks is None:
-            s1, rp, rc = jrk.lm_iter(st[0], jnp.asarray(px), rp, rc,
-                                     interpret=True, loss_delta=loss_delta)
+            s1, rp, rc = _jax_call(jrk.lm_iter, st[0], jnp.asarray(px), rp,
+                                   rc, interpret=True, loss_delta=loss_delta)
             st = s1[None]
         else:
-            st, rp, rc = jrk.lm_iter_multi(st, jnp.asarray(px),
-                                           jnp.asarray(masks), rp, rc,
-                                           interpret=True, tile=N,
-                                           loss_delta=loss_delta)
+            st, rp, rc = _jax_call(jrk.lm_iter_multi, st, jnp.asarray(px),
+                                   jnp.asarray(masks), rp, rc,
+                                   interpret=True, tile=N,
+                                   loss_delta=loss_delta)
     return np.array(st), np.array(rp), np.array(rc)
 
 
@@ -141,9 +158,9 @@ def test_one_iteration_single_start_matches_jax(steps, loss_delta):
     state, _, rho = _starts(p, 1)
     state, rp, rc = _advance_jax(state, px, None, rho, steps, loss_delta)
     state = _at_unit_damping(state)
-    sj, ej, nj = jrk.lm_iter(jnp.asarray(state[0]), jnp.asarray(px),
-                             jnp.asarray(rp), jnp.asarray(rc),
-                             interpret=True, loss_delta=loss_delta)
+    sj, ej, nj = _jax_call(jrk.lm_iter, jnp.asarray(state[0]),
+                           jnp.asarray(px), jnp.asarray(rp), jnp.asarray(rc),
+                           interpret=True, loss_delta=loss_delta)
     st, et, nt = trk.lm_iter_plain(torch.from_numpy(state[0]),
                                    torch.from_numpy(px), torch.from_numpy(rp),
                                    torch.from_numpy(rc), loss_delta=loss_delta)
@@ -160,10 +177,10 @@ def test_one_iteration_multi_start_matches_jax(steps, loss_delta):
     state, masks, rho = _starts(p, 2)
     state, rp, rc = _advance_jax(state, px, masks, rho, steps, loss_delta)
     state = _at_unit_damping(state)
-    sj, ej, nj = jrk.lm_iter_multi(
-        jnp.asarray(state), jnp.asarray(px), jnp.asarray(masks),
-        jnp.asarray(rp), jnp.asarray(rc), interpret=True, tile=N,
-        loss_delta=loss_delta)
+    sj, ej, nj = _jax_call(
+        jrk.lm_iter_multi, jnp.asarray(state), jnp.asarray(px),
+        jnp.asarray(masks), jnp.asarray(rp), jnp.asarray(rc),
+        interpret=True, tile=N, loss_delta=loss_delta)
     st, et, nt = trk.lm_iter_multi_plain(
         torch.from_numpy(state), torch.from_numpy(px), torch.from_numpy(masks),
         torch.from_numpy(rp), torch.from_numpy(rc), loss_delta=loss_delta)
@@ -236,7 +253,8 @@ def test_refine_single_start_matches_jax(loss_delta):
             np.float32(0.0), rho0)
     kw = dict(optimize_k=False, iterations=20, rel_tol=0.0,
               loss_delta=loss_delta)
-    ref = j_refine(*[jnp.asarray(a) for a in args], interpret=True, **kw)
+    ref = _jax_call(j_refine, *[jnp.asarray(a) for a in args],
+                    interpret=True, **kw)
     got = tref.refine_pallas(*_torch(*args), **kw)
     _assert_refined(got, ref)
     assert float(got.cost) < 0.5 * float(got.initial_cost)
